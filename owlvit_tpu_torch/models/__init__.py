@@ -1,0 +1,2 @@
+from .configs import OwlViTConfig, TextConfig, VisionConfig, get_config  # noqa: F401
+from . import owlvit  # noqa: F401

@@ -39,5 +39,9 @@ setup(
     python_requires=">=3.10",
     install_requires=["jax", "optax", "orbax-checkpoint", "numpy", "pyyaml",
                       "pillow"],
+    # owlvit_tpu_torch (the PyTorch/CUDA port) needs torch at run time; its
+    # kernels build with nvcc at first use
+    extras_require={"torch": ["torch"]},
+    package_data={"owlvit_tpu_torch": ["csrc/*.cu"]},
     cmdclass={"build_ext": BuildNative},
 )

@@ -1,0 +1,33 @@
+"""The device-time helpers of tools/torch_serve_profile.py (CPU only)."""
+
+import importlib.util
+from pathlib import Path
+
+import pytest
+
+_PATH = Path(__file__).resolve().parent.parent / "tools" / "torch_serve_profile.py"
+_spec = importlib.util.spec_from_file_location("torch_serve_profile", _PATH)
+prof = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(prof)
+
+
+@pytest.mark.parametrize("intervals, busy", [
+    ([], 0.0),
+    ([(0.0, 2.0), (5.0, 6.0)], 3.0),          # disjoint
+    ([(0.0, 4.0), (1.0, 2.0), (3.0, 6.0)], 6.0),  # nested and overlapping
+    ([(3.0, 6.0), (0.0, 3.0)], 6.0),          # unsorted, touching
+])
+def test_union_us(intervals, busy):
+    assert prof.union_us(intervals) == busy
+
+
+@pytest.mark.parametrize("name, cat", [
+    ("void (anonymous namespace)::pk_fwd_bf16<true>(...)", "attention kernel"),
+    ("nvjet_tst_192x192_64x4_1x2_h_bz_coopB_bias_TNN", "gemm"),
+    ("void at::native::vectorized_layer_norm_kernel<float>", "layernorm"),
+    ("Memcpy DtoD (Device -> Device)", "copy / cast"),
+    ("void at::native::reduce_kernel<512, 1, ArgMaxOps>", "reduce / index"),
+    ("void at::native::sigmoid_kernel_cuda", "elementwise / other"),
+])
+def test_category(name, cat):
+    assert prof.category(name) == cat
