@@ -7,8 +7,10 @@ package's `linear` does, so bf16 compute keeps fp32 weights.
 
 Parameter names follow the JAX parameter tree (`q`, `k`, `v`, `out`, `ln1`,
 `mlp.fc1`, ...) so that models/convert.py maps one onto the other by name.
-Left out for now: the fused add+LayerNorm branch and the quantized and
-fast-softmax variants.
+Attention takes the differentiable kernel path (`flash_attention_packed`)
+when autograd records the call, and the forward-only kernel wrapper
+(`pk_fwd`) otherwise. Left out for now: the fused add+LayerNorm branch and
+the quantized and fast-softmax variants.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from owlvit_tpu_torch.ops.flash_attention import pk_fwd, pk_fwd_plain
+from owlvit_tpu_torch.ops.flash_attention import (
+    flash_attention_packed, pk_fwd, pk_fwd_plain)
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -86,13 +89,28 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor, *, impl: str = "auto",
                 static_max: Optional[float] = None) -> torch.Tensor:
-        """impl "xla": the plain version on any device; otherwise the kernel
-        wrapper (CUDA kernel on CUDA tensors, plain version on CPU). All S
-        tokens are real: the token axis is never padded."""
-        attend = pk_fwd_plain if impl == "xla" else pk_fwd
+        """impl "xla": the plain version on any device, under PyTorch's own
+        autograd; otherwise the kernels (CUDA kernels on CUDA tensors, plain
+        versions on CPU): `flash_attention_packed` when autograd records the
+        call, `pk_fwd` when it does not. The fixed shift (static_max) is for
+        forward-only calls and raises on a recorded one, as the JAX package
+        keeps it out of every grad graph. All S tokens are real: the token
+        axis is never padded."""
         scale = (x.shape[-1] // self.num_heads) ** -0.5
-        o, _ = attend(self.q(x), self.k(x), self.v(x), scale=scale,
-                      num_heads=self.num_heads, static_max=static_max)
+        q, k, v = self.q(x), self.k(x), self.v(x)
+        recorded = torch.is_grad_enabled() and q.requires_grad
+        if recorded and static_max is not None:
+            raise ValueError("static_max (the fixed-shift softmax) is for "
+                             "forward-only calls; this call records a gradient")
+        if impl == "xla":
+            o, _ = pk_fwd_plain(q, k, v, scale=scale, num_heads=self.num_heads,
+                                static_max=static_max)
+        elif recorded:
+            o = flash_attention_packed(q, k, v, scale=scale,
+                                       num_heads=self.num_heads)
+        else:
+            o, _ = pk_fwd(q, k, v, scale=scale, num_heads=self.num_heads,
+                          static_max=static_max)
         return self.out(o)
 
 

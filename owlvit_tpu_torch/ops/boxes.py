@@ -1,6 +1,8 @@
-"""Box geometry used by the serving path (counterpart of
-owlvit_tpu/ops/boxes.py: `area`, `cxcywh_to_xyxy`, `pairwise_iou_above`).
-Box layout is the last axis of size 4; leading axes are batch axes."""
+"""Box geometry of the serving and training paths (counterpart of
+owlvit_tpu/ops/boxes.py: `area`, `cxcywh_to_xyxy`, `pairwise_iou`,
+`pairwise_iou_above`, `pairwise_giou`, `elementwise_iou`,
+`elementwise_giou`). Box layout is the last axis of size 4; leading axes are
+batch axes."""
 
 from __future__ import annotations
 
@@ -16,6 +18,19 @@ def cxcywh_to_xyxy(boxes: torch.Tensor) -> torch.Tensor:
 def area(boxes: torch.Tensor) -> torch.Tensor:
     """Area of xyxy boxes; [..., 4] -> [...]."""
     return (boxes[..., 2] - boxes[..., 0]) * (boxes[..., 3] - boxes[..., 1])
+
+
+def pairwise_iou(boxes1: torch.Tensor, boxes2: torch.Tensor):
+    """Pairwise IoU of xyxy boxes: [..., N, 4] x [..., M, 4] ->
+    (iou [..., N, M], union [..., N, M])."""
+    area1 = area(boxes1)
+    area2 = area(boxes2)
+    lt = torch.maximum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
+    rb = torch.minimum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
+    wh = (rb - lt).clamp(min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = area1[..., :, None] + area2[..., None, :] - inter
+    return inter / union, union
 
 
 def pairwise_iou_above(boxes1: torch.Tensor, boxes2: torch.Tensor,
@@ -38,3 +53,40 @@ def pairwise_iou_above(boxes1: torch.Tensor, boxes2: torch.Tensor,
     inter = iw * ih
     union = area1[..., :, None] + area2[..., None, :] - inter
     return (inter > threshold * union) & (union > 0)
+
+
+def pairwise_giou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """Pairwise generalized IoU of xyxy boxes: [..., N, M]. Boxes must be
+    non-degenerate (x1 >= x0, y1 >= y0), as sigmoid'd cxcywh boxes are."""
+    iou, union = pairwise_iou(boxes1, boxes2)
+    lt = torch.minimum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
+    rb = torch.maximum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
+    wh = (rb - lt).clamp(min=0.0)
+    hull = wh[..., 0] * wh[..., 1]
+    return iou - (hull - union) / hull
+
+
+def _aligned_inter_union(boxes1, boxes2):
+    lt = torch.maximum(boxes1[..., :2], boxes2[..., :2])
+    rb = torch.minimum(boxes1[..., 2:], boxes2[..., 2:])
+    wh = (rb - lt).clamp(min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    return inter, area(boxes1) + area(boxes2) - inter
+
+
+def elementwise_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """IoU of aligned box pairs: [..., 4] x [..., 4] -> [...]."""
+    inter, union = _aligned_inter_union(boxes1, boxes2)
+    return inter / union
+
+
+def elementwise_giou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """GIoU of aligned box pairs: [..., 4] x [..., 4] -> [...] (the diagonal
+    of pairwise_giou without the N^2 work)."""
+    inter, union = _aligned_inter_union(boxes1, boxes2)
+    iou = inter / union
+    lt = torch.minimum(boxes1[..., :2], boxes2[..., :2])
+    rb = torch.maximum(boxes1[..., 2:], boxes2[..., 2:])
+    wh = (rb - lt).clamp(min=0.0)
+    hull = wh[..., 0] * wh[..., 1]
+    return iou - (hull - union) / hull

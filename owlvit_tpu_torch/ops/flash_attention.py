@@ -1,16 +1,19 @@
-"""Packed flash-attention forward: the Hopper kernel, its plain version and
-the launch counter.
+"""Packed flash attention: the Hopper kernels, their plain versions, the
+launch counters and the autograd Function.
 
 Counterpart of owlvit_tpu/ops/flash_attention.py (`_pk_fwd`,
-`_pk_fwd_kernel`, `flash_attention_packed`, `_static_max_env`). q/k/v stay
-in the packed [B, S, D] layout (head h = columns h*hd:(h+1)*hd); outputs are
-o [B, S, D] in the input dtype and lse [B, H, S] in fp32.
+`_pk_fwd_kernel`, `_pk_bwd`, `_pk_fused_bwd_kernel`, `_flash_packed`,
+`flash_attention_packed`, `_static_max_env`). q/k/v stay in the packed
+[B, S, D] layout (head h = columns h*hd:(h+1)*hd); the forward returns
+o [B, S, D] in the input dtype and lse [B, H, S] in fp32, the backward
+dq, dk, dv [B, S, D] in the input dtype.
 
-`pk_fwd` is the wrapper: a CPU tensor goes to `pk_fwd_plain`, a CUDA tensor
-to the CUDA kernel in ../csrc/flash_attention_fwd.cu, or the wrapper raises.
-The kernel is built with nvcc at first use into ../_build/ (keyed by a hash
-of the sources and flags) and bound with ctypes, so importing this module
-needs neither nvcc nor a card.
+`pk_fwd` and `pk_bwd` are the wrappers: a CPU tensor goes to the plain
+version, a CUDA tensor to the CUDA kernel in ../csrc/flash_attention_fwd.cu
+or ../csrc/flash_attention_bwd.cu, or the wrapper raises. The kernels are
+built with nvcc at first use into ../_build/ (one library, keyed by a hash of
+the sources and flags) and bound with ctypes, so importing this module needs
+neither nvcc nor a card.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 HEAD_DIM = 64  # the only head dim of B/32, B/16 and L/14; the kernel takes no other
 
@@ -76,6 +79,42 @@ def pk_fwd_plain(q, k, v, *, scale: float, num_heads: int,
     return o, (shift + torch.log(l))[..., 0]
 
 
+def pk_bwd_plain(q, k, v, o, lse, do, *, scale: float, num_heads: int,
+                 valid_len: Optional[int] = None):
+    """Plain PyTorch version of the backward kernel, with its rounding
+    points: k and q scaled in the input dtype, p = exp(s - lse) from the
+    forward's fp32 lse, delta = rowsum(do * o) in fp32, ds rounded to the
+    input dtype before the dq and dk products, p before the dv product, fp32
+    products. Keys at index >= valid_len get p = 0 (dk, dv rows 0); query
+    rows >= valid_len contribute nothing (dq rows 0). Returns (dq, dk, dv)
+    [B, S, D] in the input dtype."""
+    B, S, D = q.shape
+    hd = D // num_heads
+    valid = S if valid_len is None else int(valid_len)
+    dt = q.dtype
+
+    def heads(x):  # [B, S, D] -> [B, H, S, hd] fp32 (exact for bf16 values)
+        return x.reshape(B, S, num_heads, hd).transpose(1, 2).float()
+
+    def packed(x):  # [B, H, S, hd] fp32 -> [B, S, D] in the input dtype
+        return x.transpose(1, 2).reshape(B, S, D).to(dt)
+
+    ks = heads((k * scale).to(dt))
+    qs = heads((q * scale).to(dt))
+    dof = heads(do)
+    s = heads(q) @ ks.transpose(-1, -2)  # [B, H, S, S] fp32
+    p = torch.exp(s - lse.float()[..., None])
+    p[..., valid:] = 0.0
+    p[..., valid:, :] = 0.0
+    delta = (do.float() * o.float()).reshape(B, S, num_heads, hd).sum(-1)
+    dp = dof @ heads(v).transpose(-1, -2)
+    ds = (p * (dp - delta.transpose(1, 2)[..., None])).to(dt).float()
+    dq = ds @ ks
+    dk = ds.transpose(-1, -2) @ qs
+    dv = p.to(dt).float().transpose(-1, -2) @ dof
+    return packed(dq), packed(dk), packed(dv)
+
+
 def _nvcc() -> str:
     for cand in (shutil.which("nvcc"),
                  os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
@@ -86,9 +125,10 @@ def _nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu with nvcc for sm_90a into a shared library under
+    """Compile csrc/*.cu with nvcc for sm_90a into one shared library under
     _build/, named by a hash of the sources and flags; reuse it if present.
-    nvcc's report (registers, shared memory, spills) goes beside it as .log."""
+    One nvcc per source, all started together, then one link. nvcc's
+    report (registers, shared memory, spills) goes beside it as .log."""
     srcs = sorted(CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in srcs:
@@ -98,14 +138,28 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in srcs]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for src, obj in zip(srcs, objs)]
+    logs, failed = [], False
+    for src, proc in zip(srcs, procs):
+        stdout, stderr = proc.communicate()
+        logs.append(f"== {src.name}\n{stdout}{stderr}")
+        failed |= proc.returncode != 0
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(logs))
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    out.with_suffix(".log").write_text("\n".join(logs))
     os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
     return out
 
@@ -120,10 +174,45 @@ def _library() -> ctypes.CDLL:
            ctypes.c_void_p]
     )
     lib.owlvit_pk_fwd.restype = ctypes.c_int
+    lib.owlvit_pk_bwd.argtypes = (
+        [ctypes.c_void_p] * 10
+        + [ctypes.c_int] * 5
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    )
+    lib.owlvit_pk_bwd.restype = ctypes.c_int
     return lib
 
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check_cuda_operands(name: str, num_heads: int, **tensors) -> tuple:
+    """What both kernels take: CUDA tensors of one [B, S, D] shape and one
+    dtype (float32 or bfloat16), head dim 64, contiguous, 16-byte aligned.
+    Returns (B, S, D)."""
+    q = next(iter(tensors.values()))
+    if q.dim() != 3 or any(x.shape != q.shape for x in tensors.values()):
+        raise ValueError(f"{name}: {', '.join(tensors)} must share one [B, S, D] "
+                         f"shape: {[tuple(x.shape) for x in tensors.values()]}")
+    B, S, D = q.shape
+    if D % num_heads or D // num_heads != HEAD_DIM:
+        raise ValueError(f"{name}: the kernel takes head_dim {HEAD_DIM}; got "
+                         f"D={D}, num_heads={num_heads}")
+    if q.dtype not in _DTYPE_CODE or any(x.dtype != q.dtype for x in tensors.values()):
+        raise ValueError(f"{name}: operands must all be float32 or bfloat16: "
+                         f"{[x.dtype for x in tensors.values()]}")
+    for key, x in tensors.items():
+        if x.device != q.device or not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"{name}: {key} must be contiguous, 16-byte aligned "
+                             f"and on {q.device}")
+    return B, S, D
+
+
+def _valid(valid_len: Optional[int], S: int) -> int:
+    valid = S if valid_len is None else int(valid_len)
+    if not 1 <= valid <= S:
+        raise ValueError(f"valid_len must be in [1, {S}], got {valid}")
+    return valid
 
 
 def pk_fwd(q, k, v, *, scale: float, num_heads: int,
@@ -140,23 +229,8 @@ def pk_fwd(q, k, v, *, scale: float, num_heads: int,
                             valid_len=valid_len, static_max=static_max)
     if q.device.type != "cuda":
         raise ValueError(f"pk_fwd runs on cpu or cuda tensors, got {q.device}")
-    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"q, k, v must share one [B, S, D] shape: "
-                         f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
-    B, S, D = q.shape
-    if D % num_heads or D // num_heads != HEAD_DIM:
-        raise ValueError(f"the kernel takes head_dim {HEAD_DIM}; got D={D}, "
-                         f"num_heads={num_heads}")
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"q, k, v must all be float32 or bfloat16: "
-                         f"{q.dtype} {k.dtype} {v.dtype}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.device != q.device or not x.is_contiguous() or x.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous, 16-byte aligned and "
-                             f"on {q.device}")
-    valid = S if valid_len is None else int(valid_len)
-    if not 1 <= valid <= S:
-        raise ValueError(f"valid_len must be in [1, {S}], got {valid}")
+    B, S, D = _check_cuda_operands("pk_fwd", num_heads, q=q, k=k, v=v)
+    valid = _valid(valid_len, S)
     o = torch.empty_like(q)
     lse = torch.empty((B, num_heads, S), dtype=torch.float32, device=q.device)
     lib = _library()
@@ -175,3 +249,77 @@ def pk_fwd(q, k, v, *, scale: float, num_heads: int,
 
 
 pk_fwd.launches = 0
+
+
+def pk_bwd(q, k, v, o, lse, do, *, scale: float, num_heads: int,
+           valid_len: Optional[int] = None):
+    """Packed attention backward -> (dq, dk, dv) [B, S, D] in the input dtype.
+
+    o and lse [B, H, S] fp32 are the forward's outputs (per-row max); do is
+    the cotangent of o. valid_len: keys at index >= valid_len are masked
+    and query rows >= valid_len contribute nothing (default S). CPU tensors
+    run `pk_bwd_plain`; CUDA tensors run the kernel, and `pk_bwd.launches`
+    counts each launch. In bf16 the kernel adds dq up with fp32 atomics, so
+    dq may differ from run to run in its last fp32 bits before the cast."""
+    if q.device.type == "cpu":
+        return pk_bwd_plain(q, k, v, o, lse, do, scale=scale,
+                            num_heads=num_heads, valid_len=valid_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"pk_bwd runs on cpu or cuda tensors, got {q.device}")
+    B, S, D = _check_cuda_operands("pk_bwd", num_heads, q=q, k=k, v=v, o=o, do=do)
+    if (lse.shape != (B, num_heads, S) or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"pk_bwd: lse must be contiguous float32 "
+                         f"[{B}, {num_heads}, {S}] on {q.device}, got "
+                         f"{lse.dtype} {tuple(lse.shape)} on {lse.device}")
+    valid = _valid(valid_len, S)
+    bf16 = q.dtype == torch.bfloat16
+    delta = torch.empty((B, num_heads, S), dtype=torch.float32, device=q.device)
+    # bf16: the kernel adds dq partials into a zeroed fp32 buffer; fp32: it writes dq
+    dq = (torch.zeros((B, S, D), dtype=torch.float32, device=q.device) if bf16
+          else torch.empty_like(q))
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    lib = _library()
+    with torch.cuda.device(q.device):
+        err = lib.owlvit_pk_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), do.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, S, num_heads, HEAD_DIM, valid,
+            float(scale), _DTYPE_CODE[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"pk_bwd kernel launch failed: CUDA error {err}")
+    pk_bwd.launches += 1
+    return (dq.to(q.dtype) if bf16 else dq), dk, dv
+
+
+pk_bwd.launches = 0
+
+
+class _FlashAttentionPacked(torch.autograd.Function):
+    """o = attention(q, k, v) with the per-row-max forward (`pk_fwd`) and
+    the backward `pk_bwd` from the saved (q, k, v, o, lse): the counterpart
+    of the JAX package's `_flash_packed` custom_vjp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, num_heads):
+        o, lse = pk_fwd(q, k, v, scale=scale, num_heads=num_heads)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale, ctx.num_heads = scale, num_heads
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = pk_bwd(q, k, v, o, lse, do.contiguous(), scale=ctx.scale,
+                            num_heads=ctx.num_heads)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_packed(q, k, v, *, scale: float, num_heads: int):
+    """Differentiable packed attention over all S tokens ([B, S, D] in and
+    out): the kernels on CUDA tensors, the plain versions on CPU tensors.
+    The fixed-shift softmax has no place here: it is for forward-only
+    calls."""
+    return _FlashAttentionPacked.apply(q, k, v, float(scale), int(num_heads))

@@ -1,5 +1,5 @@
-"""Port: owlvit_tpu_torch runs with jax impossible to import (the machine
-with the card has no JAX), and never touches the JAX package."""
+"""Port: owlvit_tpu_torch serves and trains with jax impossible to import
+(the machine with the card has no JAX), and never touches the JAX package."""
 
 import os
 import subprocess
@@ -28,9 +28,43 @@ print("ok", len(res["scores"]))
 """
 
 
-def test_port_serves_without_jax(tmp_path):
+_TRAIN_CODE = """
+import sys
+sys.modules["jax"] = None
+import numpy as np
+import torch
+from owlvit_tpu_torch.models import get_config, owlvit
+from owlvit_tpu_torch.train import Trainer
+from owlvit_tpu_torch.utils.config import Config, DataConfig, ModelConfig, TrainingConfig
+
+cfg = Config(DataConfig(), TrainingConfig(batch_size=2),
+             ModelConfig(name="tiny", trainable_last_k=1))
+model = owlvit.init(get_config("tiny"), torch.Generator().manual_seed(0), num_queries=9)
+trainer = Trainer(cfg, model, 3, steps_per_epoch=1, device="cpu")
+rng = np.random.default_rng(0)
+batch = {"image": rng.integers(0, 255, (2, 96 * 96 * 3), dtype=np.uint8),
+         "labels": np.array([[0, 2], [1, 0]]), "boxes": np.array([[[.1, .1, .5, .5]] * 2] * 2),
+         "gt_mask": np.array([[True, True], [True, False]])}
+terms = trainer.train_step(batch)
+assert terms.shape == (4,) and np.isfinite(terms).all(), terms
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("owlvit_tpu", "jaxlib", "flax", "optax"))
+assert not leaked, leaked
+print("ok", terms.tolist())
+"""
+
+
+def _run(code, cwd):
     env = dict(os.environ, PYTHONPATH=REPO)
-    out = subprocess.run([sys.executable, "-c", _CODE], env=env, cwd=tmp_path,
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=cwd,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+def test_port_serves_without_jax(tmp_path):
+    _run(_CODE, tmp_path)
+
+
+def test_port_trains_without_jax(tmp_path):
+    _run(_TRAIN_CODE, tmp_path)
