@@ -4,39 +4,65 @@
 Phases, each printing its numbers on a line of its own:
   1. device: refuse to run without CUDA; TF32 off; the card's name and power
      limit from nvidia-smi.
-  2. build: the attention kernels from owlvit_tpu_torch/csrc, one nvcc per
-     source, started together.
+  2. build: the kernels from owlvit_tpu_torch/csrc (attention forward and
+     backward, fused add+LayerNorm), one nvcc per source, started together.
   3. kernel: pk_fwd against its plain PyTorch version on the card at the
      B/32, B/16 and L/14 attention shapes (batch 4, valid_len < padded S),
      bf16 and fp32, fixed-shift (C=20) and per-row-max softmax.
   4. kernel_bwd: pk_bwd against its plain version at the same shapes and at
      [8, 2305, 768] unpadded, bf16 and fp32 (the fp32 instantiation is the
-     one the JAX package's split backward serves); at the trained shape
-     [32, 2305, 768] bf16 the kernel's time beside the plain version's (on
-     batch slices of 4) and beside scaled_dot_product_attention's forward +
-     backward.
-  5. slice: B/16 bf16 with random weights behind DetectorServer(buckets=(1,
+     one the JAX package's split backward serves).
+  5. kernel_ln: add_ln forward and backward against their plain versions at
+     [32*2305, 768] (the trained shape), [8*2305, 768], [4*3601, 1024]
+     (L/14) and [2305, 768], bf16 and fp32: r exact, the backward's sums the
+     same from launch to launch; at the trained shape in bf16 the times
+     beside the bound, the plain versions' and the yardstick x + h then
+     F.layer_norm (forward, backward alone, and forward + backward).
+  6. kernel_transposed: the transposed Function flash_attention ([B, S, H,
+     64], the packed kernels at one head per sequence) driven once forward
+     and backward at [32, 2305, 12, 64] bf16 and [4, 2305, 12, 64] fp32 (the
+     only launches of the transposed forward: no model reaches it), then
+     its kernels against the plain versions, with times at the bf16 shape.
+  7. slice: B/16 bf16 with random weights behind DetectorServer(buckets=(1,
      8)); 9 model-sized images; results checked; the forward kernel's launch
      count, a batch bit-equal to a direct forward + NMS, and the kernel path
      against the plain-attention path.
-  6. main_path_kernel: pk_fwd against its plain version at the shapes the
+  8. main_path_kernel: pk_fwd against its plain version at the shapes the
      served forward gives it ([8, 2305, 768] and [1, 2305, 768], C = 20, no
      padding) and at the train step's [32, 2305, 768] (per-row max), with
-     scaled_dot_product_attention's forward time beside it.
-  7. train: 4 steps of Trainer.train_step, B/16 bf16, random weights (seed
-     0), a 240-query bank, batch 32, max_gt 64, ~7 random boxes per image,
-     lr 3e-6, weight decay 0.1: finite terms, launch counts (12 pk_fwd and 1
-     pk_bwd per step), frozen parameters bit-unchanged, every trainable one
-     moved; host wall of steps 2-4, CUDA-event times of each phase of the
-     step, peak memory. Then the trained layer on the prefix output of 8
-     images: kernel path against the plain path, forward and backward.
+     scaled_dot_product_attention's forward time beside it; then pk_bwd at
+     [32, 2305, 768] bf16 beside its plain version (on batch slices of 4)
+     and scaled_dot_product_attention's forward + backward.
+  9. train: 4 uncached steps of Trainer.train_step, B/16 bf16, random
+     weights (seed 0), a 240-query bank, batch 32, max_gt 64, ~7 random
+     boxes per image, lr 3e-6, weight decay 0.1: finite terms, launch counts
+     (12 pk_fwd and 1 pk_bwd per step), frozen parameters bit-unchanged,
+     every trainable one moved; host wall of steps 2-4, CUDA-event times of
+     each phase of the step, peak memory. Then the trained layer on the
+     prefix output of 8 images: kernel path against the plain path, forward
+     and backward.
+ 10. train_cached: the same recipe with training.cache_backbone, the device
+     pool sized for config.yaml's 2500 images, 64 of them trained on: epoch
+     1 (2 steps) fills the pool, epoch 2 (2 steps, no pixels) gathers.
+     Default run (bf16 pool): launch counts (11 pk_fwd per filled batch, 1
+     pk_fwd and 1 pk_bwd per step), stored rows bit-equal to a fresh
+     embed_prefix, finite terms, frozen and trainable parameters; then one
+     tail step under OWLVIT_PACKED_FLASH=0 (the transposed backward) against
+     the packed step from the same state (terms equal, gradients and update
+     within 1e-4 in L2); then OWLVIT_FUSED_LN=1 with the int8 pool (22
+     add_ln_fwd per filled batch, 2 add_ln_fwd and 2 add_ln_bwd per step;
+     rows within rowmax/254; epoch-1 terms against the unfused run). Host wall, CUDA events per phase and peak memory of each.
 The kernels JSON (second-to-last line) gives each kernel's launches summed
-over the two paths driven (serving, training; each counted from 0 just before
-it), its error, time, plain time, bound and library time at its main-path
-shape; the last line is the device JSON. Any failure raises, so the exit code
-is non-zero.
+over the paths driven (serving, the uncached and cached train runs, and for
+the transposed entries alone the drives of phase 6; each counted from 0 just
+before it and read just after, each launch once, where the wrapper makes it),
+its error, time, plain time, bound and library time at its main-path shape;
+the last line is the device JSON. Any failure raises, so the exit code is
+non-zero.
 """
 
+import contextlib
+import copy
 import json
 import os
 import subprocess
@@ -51,8 +77,10 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from owlvit_tpu_torch.models import get_config, owlvit, vit  # noqa: E402
+from owlvit_tpu_torch.ops import _cuda, fused_ln  # noqa: E402
 from owlvit_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from owlvit_tpu_torch.ops import nms as nms_ops  # noqa: E402
+from owlvit_tpu_torch.ops.quant import dequantize_rows  # noqa: E402
 from owlvit_tpu_torch.ops.preprocess import normalize_image  # noqa: E402
 from owlvit_tpu_torch.serve import DetectorServer, _flatten_bucket  # noqa: E402
 from owlvit_tpu_torch.train import Trainer  # noqa: E402
@@ -64,7 +92,25 @@ KERNELS = {
                "owlvit_tpu/ops/flash_attention.py:368"),
     "pk_bwd": ("owlvit_tpu_torch/csrc/flash_attention_bwd.cu",
                "owlvit_tpu/ops/flash_attention.py:654"),
+    "add_ln_fwd": ("owlvit_tpu_torch/csrc/fused_ln.cu",
+                   "owlvit_tpu/ops/fused_ln.py:50"),
+    "add_ln_bwd": ("owlvit_tpu_torch/csrc/fused_ln.cu",
+                   "owlvit_tpu/ops/fused_ln.py:63"),
+    # the transposed functions run the packed kernels at num_heads=1
+    "transposed_fwd": ("owlvit_tpu_torch/csrc/flash_attention_fwd.cu",
+                       "owlvit_tpu/ops/flash_attention.py:73"),
+    "transposed_bwd": ("owlvit_tpu_torch/csrc/flash_attention_bwd.cu",
+                       "owlvit_tpu/ops/flash_attention.py:136/:159"),
 }
+# each kernel's launch counter: (wrapper, attribute), added to where the
+# wrapper launches; pk_fwd and pk_bwd count a one-head launch (the transposed
+# layout) under transposed_launches and no other
+COUNTERS = {"pk_fwd": (fa.pk_fwd, "launches"), "pk_bwd": (fa.pk_bwd, "launches"),
+            "add_ln_fwd": (fused_ln.add_ln_fwd, "launches"),
+            "add_ln_bwd": (fused_ln.add_ln_bwd, "launches"),
+            "transposed_fwd": (fa.pk_fwd, "transposed_launches"),
+            "transposed_bwd": (fa.pk_bwd, "transposed_launches")}
+SWITCHES = ("OWLVIT_FUSED_LN", "OWLVIT_PACKED_FLASH")
 BATCH = 4
 C = fa.STATIC_MAX_DEFAULT
 # Tolerances. Forward, bf16: both sides round p to bf16 and differ in
@@ -92,9 +138,33 @@ TOL_SLICE = 3e-2  # kernel vs plain attention, pre-NMS sims and boxes, 12 bf16 l
 # reference both bf16 paths are reported against.
 TOL_LAYER = {"y": 3e-2, "dx": 3e-2, "dq_w": 0.15, "dk_w": 0.15, "dv_w": 3e-2,
              "dout_w": 3e-2}
+# add_ln, kernel vs plain on the same inputs. r: exact (one add, rounded
+# once on both sides). y and g: bf16 1e-2 of the largest magnitude (the
+# fp32 statistics differ in their last bits, so a value at a bf16 rounding
+# boundary can fall either way: one ulp, 0.4-0.8%); fp32 1e-5 of it
+# (summation order and rsqrt over D <= 1024). dscale and dbias: sums over N
+# rows in another order, held to 1e-5 of the column's sum of magnitudes.
+TOL_LN = {"bf16": 1e-2, "f32": 1e-5}
+TOL_LN_SUM = 1e-5
+# The cached train step. Under OWLVIT_FUSED_LN=1 an LN output may differ by
+# one bf16 ulp where the rounding falls either way; that propagates through
+# the 11 frozen bf16 layers at bf16 noise, and a Hungarian assignment may
+# flip on a near-tie: epoch-1 loss terms rtol 2e-2 against the unfused run.
+# OWLVIT_PACKED_FLASH=0 changes only the backward (the same kernel at one
+# head per sequence; dq atomics add in another order), so the terms are
+# bit-equal, and the gradients of every trained parameter are within 1e-4 of
+# the packed step's in L2 norm (2.8e-6 read on the update on an H100 80GB).
+# The update is held to the same 1e-4, without the key bias: its gradient is
+# 0 in exact arithmetic (a per-query shift of all scores leaves the softmax
+# unchanged), so it is rounding noise that AdamW scales to a full step. Its
+# gradient is in the gradient check.
+TOL_FUSED_TERMS = 2e-2
+TOL_HYBRID_GRAD = TOL_HYBRID_UPDATE = 1e-4
 # H100 SXM datasheet peaks (dense): the bound of a launch is the larger of
-# its bytes over the memory rate and its flops over the tensor-core rate.
+# its bytes over the memory rate and its flops over the tensor-core rate
+# (fp32 outside the tensor cores for elementwise work).
 PEAK_BF16_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+PEAK_F32_FLOPS = 67e12
 
 
 def check(ok, what):
@@ -127,9 +197,37 @@ def max_rel(a, b):
     return max_abs(a, b) / b.float().abs().max().item()
 
 
-def bound(flops, nbytes):
+def reset_counts():
+    for wrapper, attr in COUNTERS.values():
+        setattr(wrapper, attr, 0)
+
+
+def read_counts():
+    return {name: getattr(wrapper, attr) for name, (wrapper, attr) in COUNTERS.items()}
+
+
+@contextlib.contextmanager
+def switches(**values):
+    """Set the JAX package's switches (None: unset) for one run, then
+    restore the environment."""
+    def apply(settings):
+        for k, v in settings.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    old = {k: os.environ.get(k) for k in values}
+    try:
+        apply(values)
+        yield
+    finally:
+        apply(old)
+
+
+def bound(flops, nbytes, peak_flops=PEAK_BF16_FLOPS):
     """(bound_ms, bound_by): the least time for the work on an H100 SXM."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -182,8 +280,8 @@ def phase_device():
 
 def phase_build():
     t0 = time.perf_counter()
-    lib_path = fa.build()
-    fa._library()
+    lib_path = _cuda.build()
+    _cuda.library()
     build_s = time.perf_counter() - t0
     log = lib_path.with_suffix(".log")
     report = ([ln.strip() for ln in log.read_text().splitlines()
@@ -381,7 +479,7 @@ def phase_slice():
     rng = np.random.default_rng(0)
     images = rng.integers(0, 256, (9, S, S, 3), dtype=np.uint8)
 
-    fa.pk_fwd.launches = fa.pk_bwd.launches = 0
+    reset_counts()
     t_start = time.perf_counter()
     srv = DetectorServer(params, cfg, buckets=(1, 8), device="cuda",
                          autostart=False)  # warms up both buckets
@@ -391,7 +489,7 @@ def phase_slice():
     srv.start()  # all 9 are queued: one batch of 8, one of 1
     results = [f.result() for f in futs]
     serve_s = time.perf_counter() - t0
-    launches = {"pk_fwd": fa.pk_fwd.launches, "pk_bwd": fa.pk_bwd.launches}
+    launches = read_counts()
     stats = srv.stats()
     srv.close()
 
@@ -399,7 +497,8 @@ def phase_slice():
     check(stats["bucket_counts"] == {1: 1, 8: 1}, f"buckets {stats['bucket_counts']}")
     check(launches["pk_fwd"] == cfg.vision.num_layers * forward_batches,
           f"{launches} launches for {forward_batches} forward batches")
-    check(launches["pk_bwd"] == 0, "serving launched the backward kernel")
+    check(all(n == 0 for k, n in launches.items() if k != "pk_fwd"),
+          f"serving launched another kernel: {launches}")
     for res in results:
         b, s = res["boxes"], res["scores"]
         check(np.isfinite(b).all() and np.isfinite(s).all(), "non-finite result")
@@ -497,7 +596,7 @@ def phase_train(steps=4, batch=32, max_gt=64, n_classes=80):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.pk_fwd.launches = fa.pk_bwd.launches = 0
+    reset_counts()
     walls, terms, phases = [], [], []
     for i, b in enumerate(batches):
         timer[0] = PhaseTimer() if i else None
@@ -507,12 +606,12 @@ def phase_train(steps=4, batch=32, max_gt=64, n_classes=80):
         walls.append((time.perf_counter() - t0) * 1e3)
         if timer[0]:
             phases.append(timer[0].durations())
-    launches = {"pk_fwd": fa.pk_fwd.launches, "pk_bwd": fa.pk_bwd.launches}
+    launches = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     hook.remove()
 
     check(np.isfinite(terms).all(), f"non-finite loss terms {terms}")
-    check(launches == {"pk_fwd": L * steps, "pk_bwd": steps},
+    check(launches == {**dict.fromkeys(KERNELS, 0), "pk_fwd": L * steps, "pk_bwd": steps},
           f"{launches} launches in {steps} steps")
     trainable = {id(p) for p in trainer.params}
     for n, p in model.named_parameters():
@@ -559,11 +658,410 @@ def phase_train(steps=4, batch=32, max_gt=64, n_classes=80):
     return launches
 
 
+LN_EPS = 1e-5
+
+
+def ln_inputs(N, D, dtype, seed):
+    """x with a row offset (so that the mean is not ~0), h, dy, dr; fp32
+    scale and bias around 1 and 0, as trained LayerNorms are."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn(N, D, generator=g, device="cuda") * 2 + 0.5).to(dtype)
+    h, dy, dr = (torch.randn(N, D, generator=g, device="cuda").to(dtype) for _ in range(3))
+    scale = 1 + 0.2 * torch.randn(D, generator=g, device="cuda")
+    bias = 0.1 * torch.randn(D, generator=g, device="cuda")
+    return x, h, scale, bias, dy, dr
+
+
+def ln_errors(x, h, scale, bias, dy, dr, key):
+    """add_ln forward and backward, kernel vs plain on the same inputs;
+    raises outside the tolerances or if the backward's sums change from one
+    launch to the next."""
+    r_k, y_k = fused_ln.add_ln_fwd(x, h, scale, bias, LN_EPS)
+    r_p, y_p = fused_ln.add_ln_fwd_plain(x, h, scale, bias, LN_EPS)
+    g_k, ds_k, db_k = fused_ln.add_ln_bwd(r_k, dy, dr, scale, LN_EPS)
+    again = fused_ln.add_ln_bwd(r_k, dy, dr, scale, LN_EPS)
+    g_p, ds_p, db_p = fused_ln.add_ln_bwd_plain(r_k, dy, dr, scale, LN_EPS)
+    torch.cuda.synchronize()
+    for name, t in (("y", y_k), ("g", g_k), ("dscale", ds_k), ("dbias", db_k)):
+        check(torch.isfinite(t).all().item(), f"add_ln {key}: non-finite kernel {name}")
+    check(torch.equal(r_k, r_p), f"add_ln {key}: r differs from x + h")
+    check(all(torch.equal(a, b) for a, b in zip((g_k, ds_k, db_k), again)),
+          f"add_ln {key}: the backward is not deterministic")
+    mean, rstd = fused_ln._stats(r_k.float(), LN_EPS)
+    xhat = (r_k.float() - mean) * rstd
+    mag_s = (dy.float() * xhat).abs().sum(0)
+    mag_b = dy.float().abs().sum(0)
+    err = {"y_max_abs": max_abs(y_k, y_p), "y_max_rel": max_rel(y_k, y_p),
+           "g_max_abs": max_abs(g_k, g_p), "g_max_rel": max_rel(g_k, g_p),
+           "dscale_max_abs": max_abs(ds_k, ds_p), "dbias_max_abs": max_abs(db_k, db_p),
+           "dscale_rel_to_sum": ((ds_k - ds_p).abs() / mag_s).max().item(),
+           "dbias_rel_to_sum": ((db_k - db_p).abs() / mag_b).max().item()}
+    check(err["y_max_rel"] <= TOL_LN[key] and err["g_max_rel"] <= TOL_LN[key]
+          and err["dscale_rel_to_sum"] <= TOL_LN_SUM
+          and err["dbias_rel_to_sum"] <= TOL_LN_SUM, f"add_ln {key}: {err}")
+    return err, r_k
+
+
+def phase_kernel_ln():
+    """add_ln forward and backward vs plain at the trained shape
+    [32*2305, 768], [8*2305, 768], L/14's [4*3601, 1024] and one B/16 image
+    (2305 rows, not a multiple of the kernel's 8-row block; 4*3601 is not
+    either), bf16 and fp32; at the trained shape in bf16 the times of the
+    kernels, their plain versions and the yardstick x + h then
+    F.layer_norm: forward, backward alone (on a retained graph, the
+    kernels line's library time) and forward + backward."""
+    S16 = get_config("b16").vision.num_patches + 1
+    S14 = get_config("l14").vision.num_patches + 1
+    trained = None
+    for name, N, D in (("trained", 32 * S16, 768), ("b16_b8", 8 * S16, 768),
+                       ("l14_b4", 4 * S14, 1024), ("b16_one_image", S16, 768)):
+        row = {"shape": [N, D]}
+        for dtype in (torch.bfloat16, torch.float32):
+            key = "bf16" if dtype == torch.bfloat16 else "f32"
+            x, h, scale, bias, dy, dr = ln_inputs(N, D, dtype, seed=N + D)
+            err, r = ln_errors(x, h, scale, bias, dy, dr, key)
+            if name == "trained" and key == "bf16":
+                elt = x.element_size()
+                w16, b16 = scale.to(dtype), bias.to(dtype)
+                leaves = [t.detach().clone().requires_grad_(True) for t in (x, h, w16, b16)]
+
+                def lib_fwd():
+                    rl = leaves[0] + leaves[1]
+                    return rl, F.layer_norm(rl, (D,), leaves[2], leaves[3], LN_EPS)
+
+                def lib_fwd_bwd():
+                    torch.autograd.grad(lib_fwd(), leaves, (dr, dy))
+
+                graph = lib_fwd()  # the backward alone, on a retained graph
+
+                fwd_b = bound(8 * N * D, 4 * N * D * elt + 2 * D * 4, PEAK_F32_FLOPS)
+                bwd_b = bound(14 * N * D, 4 * N * D * elt + 3 * D * 4, PEAK_F32_FLOPS)
+                trained = {
+                    "fwd": {"max_abs_err": err["y_max_abs"],
+                            "ms": cuda_ms(lambda: fused_ln.add_ln_fwd(x, h, scale, bias, LN_EPS), 20),
+                            "plain_ms": cuda_ms(lambda: fused_ln.add_ln_fwd_plain(
+                                x, h, scale, bias, LN_EPS), 5),
+                            "library_ms": cuda_ms(lambda: F.layer_norm(x + h, (D,), w16, b16, LN_EPS), 20),
+                            "bound_ms": fwd_b[0], "bound_by": fwd_b[1]},
+                    "bwd": {"max_abs_err": err["g_max_abs"],
+                            "ms": cuda_ms(lambda: fused_ln.add_ln_bwd(r, dy, dr, scale, LN_EPS), 20),
+                            "plain_ms": cuda_ms(lambda: fused_ln.add_ln_bwd_plain(
+                                r, dy, dr, scale, LN_EPS), 5),
+                            "library_ms": cuda_ms(lambda: torch.autograd.grad(
+                                graph, leaves, (dr, dy), retain_graph=True), 20),
+                            "library_fwd_bwd_ms": cuda_ms(lib_fwd_bwd, 10),
+                            "bound_ms": bwd_b[0], "bound_by": bwd_b[1]},
+                }
+                err.update({f"{d}_{k}": v for d in ("fwd", "bwd") for k, v in trained[d].items()
+                            if k != "max_abs_err"})
+                del leaves, graph
+            row[key] = err
+            del x, h, scale, bias, dy, dr, r
+            torch.cuda.empty_cache()
+        emit("kernel_ln", case=name, **row)
+    return trained
+
+
+def transposed_vs_plain(q3, k3, v3, do3, scale, key, slice_=48):
+    """pk_fwd and pk_bwd at num_heads=1 on [B*H, S, 64] (the transposed
+    kernels) against the plain versions, on slices of `slice_` sequences."""
+    args = dict(scale=scale, num_heads=1)
+    o3, lse = fa.pk_fwd(q3, k3, v3, **args)
+    grads = fa.pk_bwd(q3, k3, v3, o3, lse, do3, **args)
+    torch.cuda.synchronize()
+    stats = dict.fromkeys(("o", "lse", "dq", "dk", "dv"), 0.0)
+    peak = dict.fromkeys(stats, 0.0)
+    plain_fwd_ms = plain_bwd_ms = 0.0
+    for i in range(0, q3.shape[0], slice_):
+        part = [t[i:i + slice_] for t in (q3, k3, v3)]
+        o_p, l_p = fa.pk_fwd_plain(*part, **args)
+        want = fa.pk_bwd_plain(*part, o3[i:i + slice_], lse[i:i + slice_],
+                               do3[i:i + slice_], **args)
+        for name, got, ref in (("o", o3, o_p), ("lse", lse, l_p), *zip(
+                ("dq", "dk", "dv"), grads, want)):
+            stats[name] = max(stats[name], max_abs(got[i:i + slice_], ref))
+            peak[name] = max(peak[name], ref.float().abs().max().item())
+        del o_p, l_p, want
+        plain_fwd_ms += cuda_ms(lambda: fa.pk_fwd_plain(*part, **args), 1)
+        plain_bwd_ms += cuda_ms(lambda: fa.pk_bwd_plain(
+            *part, o3[i:i + slice_], lse[i:i + slice_], do3[i:i + slice_], **args), 1)
+    err = {f"{n}_max_abs": stats[n] for n in stats}
+    err.update({f"{n}_max_rel": stats[n] / peak[n] for n in ("o", "dq", "dk", "dv")})
+    for t in (o3, *grads):
+        check(torch.isfinite(t).all().item(), f"transposed {key}: non-finite kernel output")
+    if key == "bf16":
+        ok = (err["o_max_rel"] <= TOL_BF16_O_REL and err["lse_max_abs"] <= TOL_BF16_LSE
+              and max(err[f"{n}_max_rel"] for n in ("dq", "dk", "dv")) <= TOL_BWD_BF16_REL)
+    else:
+        ok = (err["o_max_abs"] <= TOL_F32 and err["lse_max_abs"] <= TOL_F32
+              and max(err[f"{n}_max_rel"] for n in ("dq", "dk", "dv")) <= TOL_BWD_F32_REL)
+    check(ok, f"transposed {key}: {err}")
+    return err, o3, lse, plain_fwd_ms, plain_bwd_ms
+
+
+def phase_kernel_transposed():
+    """flash_attention (the transposed Function) forward and backward at
+    [32, 2305, 12, 64] bf16 and [4, 2305, 12, 64] fp32: one drive through
+    the entry point (the only launches of the transposed forward: no model
+    reaches it), counted from 0; then the kernels on the transposed layout
+    against their plain versions; at the bf16 shape the times beside the
+    bound and scaled_dot_product_attention's."""
+    vc = get_config("b16").vision
+    S, H, hd = vc.num_patches + 1, vc.num_heads, vc.head_dim
+    scale = hd**-0.5
+    launches, out = dict.fromkeys(KERNELS, 0), {}
+    for batch, dtype in ((32, torch.bfloat16), (4, torch.float32)):
+        key = "bf16" if dtype == torch.bfloat16 else "f32"
+        g = torch.Generator(device="cuda").manual_seed(300 + batch)
+        q, k, v, do = (torch.randn(batch, S, H, hd, generator=g, device="cuda").to(dtype)
+                       for _ in range(4))
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        reset_counts()
+        o = fa.flash_attention(*leaves, scale=scale)
+        o.backward(do)
+        torch.cuda.synchronize()
+        drive = read_counts()
+        check(drive == {**dict.fromkeys(KERNELS, 0), "transposed_fwd": 1, "transposed_bwd": 1},
+              f"transposed {key}: {drive} launches in one forward + backward")
+        launches = {n: launches[n] + drive[n] for n in KERNELS}
+        q3, k3, v3, do3 = (fa._to3(t) for t in (q, k, v, do))
+        err, o3, lse, plain_fwd_ms, plain_bwd_ms = transposed_vs_plain(q3, k3, v3, do3, scale, key)
+        check(torch.equal(fa._from3(o3, batch, H), o.detach()),
+              f"transposed {key}: the Function's output is not the kernel's")
+        tol = TOL_BWD_BF16_REL if key == "bf16" else TOL_BWD_F32_REL
+        grads = fa.pk_bwd(q3, k3, v3, o3, lse, do3, scale=scale, num_heads=1)
+        for name, leaf, want in zip(("dq", "dk", "dv"), leaves, grads):
+            check(max_rel(fa._to3(leaf.grad), want) <= tol,
+                  f"transposed {key}: the Function's {name} is not the kernel's")
+        row = {"shape": [batch, S, H, hd], "layout": list(q3.shape), **err}
+        if key == "bf16":
+            BH = batch * H
+            fb, bb = fwd_bound(BH, S, hd, 1), bwd_bound(BH, S, hd, 1)
+            with torch.no_grad():
+                fn_ms = cuda_ms(lambda: fa.flash_attention(q, k, v, scale=scale), 10)
+            out = {
+                "fwd": {"max_abs_err": err["o_max_abs"],
+                        "ms": cuda_ms(lambda: fa.pk_fwd(q3, k3, v3, scale=scale,
+                                                        num_heads=1), 20),
+                        "plain_ms": plain_fwd_ms, "library_ms": sdpa_ms(q3, k3, v3, 1, scale),
+                        "bound_ms": fb[0], "bound_by": fb[1], "function_ms": fn_ms},
+                "bwd": {"max_abs_err": max(err[f"{n}_max_abs"] for n in ("dq", "dk", "dv")),
+                        "ms": cuda_ms(lambda: fa.pk_bwd(q3, k3, v3, o3, lse, do3,
+                                                        scale=scale, num_heads=1), 10),
+                        "plain_ms": plain_bwd_ms,
+                        "library_ms": sdpa_ms(q3, k3, v3, 1, scale, do=do3),
+                        "bound_ms": bb[0], "bound_by": bb[1]},
+            }
+            row.update({f"{d}_{k}": v for d in ("fwd", "bwd") for k, v in out[d].items()
+                        if k != "max_abs_err"})
+        emit("kernel_transposed", dtype=key, launches=drive, **row)
+        del q, k, v, do, leaves, o, q3, k3, v3, do3, o3, lse
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+N_IMAGES = 2500  # config.yaml's train set: the device pool is sized for it
+
+
+def cached_data(rng, n, max_gt, S, n_classes):
+    """n images with their GT (flat uint8, as the loader sends them) and
+    their rows in the train set, distinct and spread over the pool."""
+    data = train_batch(rng, n, max_gt, S, n_classes)
+    data["indices"] = rng.choice(N_IMAGES, n, replace=False)
+    return data
+
+
+def epoch_batches(data, batch, order, with_image):
+    for start in range(0, len(order), batch):
+        sel = order[start:start + batch]
+        b = {k: data[k][sel] for k in ("labels", "boxes", "gt_mask", "indices")}
+        if with_image:
+            b["image"] = data["image"][sel]
+        yield b
+
+
+def cached_run(data, orders, batch, max_gt, n_classes, store_dtype=None):
+    """Trainer.train_step with cache_backbone over the epochs in `orders`
+    (epoch 1 with images, later epochs without): B/16 bf16, random weights
+    (seed 0), the pool sized for N_IMAGES rows. Checks the terms, the frozen
+    and trainable parameters; returns the trainer and the run's record."""
+    mcfg = get_config("b16")
+    config = Config(DataConfig(max_gt=max_gt),
+                    TrainingConfig(learning_rate=3e-6, weight_decay=0.1, batch_size=batch,
+                                   checkpoint_dir=None, cache_backbone=True,
+                                   cache_store_dtype=store_dtype),
+                    ModelConfig(name="b16", dtype="bfloat16", trainable_last_k=1))
+    model = owlvit.init(mcfg, torch.Generator().manual_seed(0),
+                        num_queries=3 * n_classes, device="cuda")
+    trainer = Trainer(config, model, n_classes, steps_per_epoch=len(orders[0]) // batch,
+                      class_weights=np.linspace(0.5, 1.5, n_classes, dtype=np.float32),
+                      device="cuda", n_images=N_IMAGES)
+    check(trainer.act_store == "device",
+          f"auto store for {N_IMAGES} B/16 rows: {trainer.act_store}")
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    walls, terms, phases = [], [], []
+    for epoch, order in enumerate(orders):
+        for b in epoch_batches(data, batch, order, with_image=epoch == 0):
+            timer = PhaseTimer()
+            t0 = time.perf_counter()
+            terms.append(trainer.train_step(b, mark=timer).tolist())
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            phases.append(timer.durations())
+    launches = read_counts()
+    record = {"terms": terms, "step_wall_ms": walls, "phases_ms": phases,
+              "launches": launches,
+              "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+    check(np.isfinite(terms).all(), f"non-finite loss terms {terms}")
+    trainable = {id(p) for p in trainer.params}
+    for n, p in model.named_parameters():
+        same = torch.equal(p, before[n])
+        check(not same if id(p) in trainable else same,
+              f"cached: {'trainable' if id(p) in trainable else 'frozen'} {n}: "
+              f"{'unchanged' if same else 'changed'}")
+    return trainer, record
+
+
+def fresh_prefix(trainer, data, sel):
+    """embed_prefix of the images at `sel`, recomputed from the pixels."""
+    S = trainer.model_cfg.vision.image_size
+    img = torch.from_numpy(data["image"][sel]).cuda().reshape(len(sel), S, S, 3)
+    return owlvit.embed_prefix(trainer.model, trainer.model_cfg, normalize_image(img))
+
+
+def l2_rel(got, want, keep):
+    """||got - want|| / ||want|| over the tensors at `keep`, in fp32."""
+    diff = sum(((got[i].float() - want[i].float()) ** 2).sum() for i in keep)
+    return (diff / sum((want[i].float() ** 2).sum() for i in keep)).sqrt().item()
+
+
+def hybrid_step(trainer, batch):
+    """One tail step on stored rows, packed, then the same step from the
+    same state under OWLVIT_PACKED_FLASH=0 (hybrid: the transposed
+    backward); the trainer is left after the hybrid step. Holds the terms,
+    the gradients and the update to the packed step's."""
+    names = {id(p): n for n, p in trainer.model.named_parameters()}
+    params = trainer.params
+    start = [p.detach().clone() for p in params]
+    opt_state, step = copy.deepcopy(trainer.opt.state_dict()), trainer.step
+    terms_p = trainer.train_step(dict(batch))
+    grad_p = [p.grad.clone() for p in params]
+    upd_p = [p.detach() - s for p, s in zip(params, start)]
+    with torch.no_grad():
+        for p, s in zip(params, start):
+            p.copy_(s)
+    trainer.opt.load_state_dict(opt_state)
+    trainer.step = step
+    with switches(OWLVIT_PACKED_FLASH="0"):
+        reset_counts()
+        terms_h = trainer.train_step(dict(batch))
+        torch.cuda.synchronize()
+        launches = read_counts()
+    grad_h = [p.grad for p in params]
+    upd_h = [p.detach() - s for p, s in zip(params, start)]
+    check(launches == {**dict.fromkeys(KERNELS, 0), "pk_fwd": 1, "transposed_bwd": 1},
+          f"hybrid step: {launches} launches")
+    every = range(len(params))
+    key_bias = [i for i in every if names[id(params[i])].endswith("attn.k.bias")]
+    check(len(key_bias) == 1, f"the trained tail has {len(key_bias)} key biases")
+    keep = [i for i in every if i not in key_bias]
+    record = {"terms_packed": terms_p.tolist(), "terms_hybrid": terms_h.tolist(),
+              "terms_equal": bool(np.array_equal(terms_h, terms_p)),
+              "grad_l2_rel": l2_rel(grad_h, grad_p, every),
+              "update_l2_rel": l2_rel(upd_h, upd_p, keep),
+              "update_max_abs_diff": max((upd_h[i] - upd_p[i]).abs().max().item() for i in keep),
+              "update_max_abs": max(upd_p[i].abs().max().item() for i in keep),
+              "key_bias_grad_max_abs": grad_p[key_bias[0]].abs().max().item(),
+              "grad_max_abs": max(g.abs().max().item() for g in grad_p),
+              "launches": launches}
+    check(record["terms_equal"] and record["grad_l2_rel"] <= TOL_HYBRID_GRAD
+          and record["update_l2_rel"] <= TOL_HYBRID_UPDATE,
+          f"hybrid step vs packed step: {record}")
+    return record
+
+
+def phase_train_cached(n_rows=64, batch=32, max_gt=64, n_classes=80):
+    """The cached train step, B/16 bf16 batch 32, 64 images of a 2500-row
+    pool: epoch 1 (2 steps) fills the pool, epoch 2 (2 steps) gathers.
+    Three runs: default (bf16 pool), then one tail step under
+    OWLVIT_PACKED_FLASH=0 against the packed step on the same rows, then
+    OWLVIT_FUSED_LN=1 with the int8 pool. Returns the launches summed over
+    the runs."""
+    L = get_config("b16").vision.num_layers
+    S = get_config("b16").vision.image_size
+    rng = np.random.default_rng(5)
+    data = cached_data(rng, n_rows, max_gt, S, n_classes)
+    orders = [np.arange(n_rows), rng.permutation(n_rows)]
+    fills, steps = n_rows // batch, 2 * n_rows // batch
+    total = dict.fromkeys(KERNELS, 0)
+
+    with switches(OWLVIT_FUSED_LN=None, OWLVIT_PACKED_FLASH=None):
+        trainer, rec = cached_run(data, orders, batch, max_gt, n_classes)
+    check(rec["launches"] == {**dict.fromkeys(KERNELS, 0),
+                              "pk_fwd": (L - 1) * fills + steps, "pk_bwd": steps},
+          f"cached default: {rec['launches']} launches")
+    sel = orders[0][:batch]
+    with torch.no_grad():
+        fresh = fresh_prefix(trainer, data, sel)
+        stored = trainer.pool_gather(torch.from_numpy(data["indices"][sel]).cuda())
+    check(torch.equal(stored, fresh), "the pool's rows differ from a fresh embed_prefix")
+    pool_gb = trainer.pool.numel() * trainer.pool.element_size() / 1e9
+    emit("train_cached", run="default", model="b16", dtype="bfloat16", store="bfloat16",
+         pool_rows=N_IMAGES, pool_gb=pool_gb, batch=batch, images=n_rows,
+         epoch2_img_per_s=batch * (steps - fills) / (sum(rec["step_wall_ms"][fills:]) / 1e3),
+         gathered_bit_equal=True, **rec)
+    total = {n: total[n] + rec["launches"][n] for n in KERNELS}
+    unfused_terms = rec["terms"]
+
+    hyb = hybrid_step(trainer, next(epoch_batches(data, batch, orders[1], with_image=False)))
+    emit("train_cached_hybrid_step", **hyb)
+    total = {n: total[n] + hyb["launches"][n] for n in KERNELS}
+    del trainer, fresh, stored
+    torch.cuda.empty_cache()
+
+    with switches(OWLVIT_FUSED_LN="1", OWLVIT_PACKED_FLASH=None):
+        trainer, rec = cached_run(data, orders, batch, max_gt, n_classes, store_dtype="int8")
+        check(rec["launches"] == {**dict.fromkeys(KERNELS, 0),
+                                  "pk_fwd": (L - 1) * fills + steps, "pk_bwd": steps,
+                                  "add_ln_fwd": 2 * (L - 1) * fills + 2 * steps,
+                                  "add_ln_bwd": 2 * steps},
+              f"cached fused: {rec['launches']} launches")
+        with torch.no_grad():
+            fresh = fresh_prefix(trainer, data, sel).float()
+            rows = torch.from_numpy(data["indices"][sel]).cuda()
+            deq = dequantize_rows(trainer.pool["q"].index_select(0, rows),
+                                  trainer.pool["s"].index_select(0, rows), torch.float32)
+        # half a step, plus the fp32 rounding of x / s and q * s
+        step_bound = fresh.abs().amax(-1, keepdim=True) / 254 * (1 + 1e-4)
+        int8_err = ((deq - fresh).abs() / step_bound).max().item()
+        check(int8_err <= 1.0, f"int8 pool rows beyond rowmax/254: {int8_err}")
+    rel = (np.abs(np.subtract(rec["terms"][:fills], unfused_terms[:fills]))
+           / np.abs(unfused_terms[:fills]))
+    check(rel.max() <= TOL_FUSED_TERMS, f"fused vs unfused epoch-1 terms: {rel.tolist()}")
+    pool_gb = sum(t.numel() * t.element_size() for t in trainer.pool.values()) / 1e9
+    emit("train_cached", run="fused_ln_int8", model="b16", dtype="bfloat16", store="int8",
+         pool_rows=N_IMAGES, pool_gb=pool_gb, batch=batch, images=n_rows,
+         epoch2_img_per_s=batch * (steps - fills) / (sum(rec["step_wall_ms"][fills:]) / 1e3),
+         epoch1_terms_max_rel_vs_unfused=rel.max().item(),
+         int8_err_over_rowmax_254=int8_err, **rec)
+    total = {n: total[n] + rec["launches"][n] for n in KERNELS}
+    del trainer, fresh, deq
+    torch.cuda.empty_cache()
+    return total
+
+
 def main():
+    for name in SWITCHES:  # the default paths run with the switches off
+        os.environ.pop(name, None)
     phase_device()
     phase_build()
     phase_kernel()
     phase_kernel_bwd()
+    ln = phase_kernel_ln()
+    transposed, transposed_launches = phase_kernel_transposed()
     cfg, serve_launches = phase_slice()
     b16 = cfg.vision
     served = [fwd_row(b16, bucket, C) for bucket in (8, 1)]
@@ -572,13 +1070,23 @@ def main():
         emit("main_path_kernel", **row)
     bwd = trained_shape_bwd(cfg)
     train_launches = phase_train()
-    launches = {k: serve_launches[k] + train_launches[k] for k in KERNELS}
+    cached_launches = phase_train_cached()
+    launches = {k: sum(run[k] for run in (serve_launches, train_launches, cached_launches))
+                for k in KERNELS}
+    for k in ("transposed_fwd", "transposed_bwd"):  # the drives of the transposed Function
+        launches[k] += transposed_launches[k]
+    check(all(launches[k] > 0 for k in KERNELS), f"a kernel was never launched: {launches}")
     fwd = served[0]
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     rows = {
         "pk_fwd": {"max_abs_err": max(r["o_max_abs"] for r in served), **{
-            k: fwd[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
+            k: fwd[k] for k in keys}},
         "pk_bwd": {"max_abs_err": max(bwd[f"{n}_max_abs"] for n in ("dq", "dk", "dv")), **{
-            k: bwd[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
+            k: bwd[k] for k in keys}},
+        "add_ln_fwd": {k: ln["fwd"][k] for k in ("max_abs_err", *keys)},
+        "add_ln_bwd": {k: ln["bwd"][k] for k in ("max_abs_err", *keys)},
+        "transposed_fwd": {k: transposed["fwd"][k] for k in ("max_abs_err", *keys)},
+        "transposed_bwd": {k: transposed["bwd"][k] for k in ("max_abs_err", *keys)},
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

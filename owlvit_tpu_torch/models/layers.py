@@ -7,14 +7,17 @@ package's `linear` does, so bf16 compute keeps fp32 weights.
 
 Parameter names follow the JAX parameter tree (`q`, `k`, `v`, `out`, `ln1`,
 `mlp.fc1`, ...) so that models/convert.py maps one onto the other by name.
-Attention takes the differentiable kernel path (`flash_attention_packed`)
-when autograd records the call, and the forward-only kernel wrapper
-(`pk_fwd`) otherwise. Left out for now: the fused add+LayerNorm branch and
-the quantized and fast-softmax variants.
+Attention takes a differentiable kernel path when autograd records the call
+(packed, else hybrid, else transposed, as the JAX package's `attention`
+routes them) and the forward-only kernel wrapper (`pk_fwd`) otherwise.
+`encoder` takes the fused add+LayerNorm branch under OWLVIT_FUSED_LN=1, as
+the JAX package's does. Left out for now: the quantized and fast-softmax
+variants.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -22,7 +25,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from owlvit_tpu_torch.ops.flash_attention import (
-    flash_attention_packed, pk_fwd, pk_fwd_plain)
+    flash_attention, flash_attention_hybrid, flash_attention_packed,
+    hybrid_supported, packed_supported, pk_fwd, pk_fwd_plain)
+from owlvit_tpu_torch.ops.fused_ln import add_ln
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -91,12 +96,17 @@ class Attention(nn.Module):
                 static_max: Optional[float] = None) -> torch.Tensor:
         """impl "xla": the plain version on any device, under PyTorch's own
         autograd; otherwise the kernels (CUDA kernels on CUDA tensors, plain
-        versions on CPU): `flash_attention_packed` when autograd records the
-        call, `pk_fwd` when it does not. The fixed shift (static_max) is for
+        versions on CPU). A call that autograd records takes
+        `flash_attention_packed` when `packed_supported` (off under
+        OWLVIT_PACKED_FLASH=0), else `flash_attention_hybrid` when
+        `hybrid_supported`, else the transposed `flash_attention`; a call it
+        does not record takes `pk_fwd`. The fixed shift (static_max) is for
         forward-only calls and raises on a recorded one, as the JAX package
         keeps it out of every grad graph. All S tokens are real: the token
         axis is never padded."""
-        scale = (x.shape[-1] // self.num_heads) ** -0.5
+        B, S, D = x.shape
+        H = self.num_heads
+        scale = (D // H) ** -0.5
         q, k, v = self.q(x), self.k(x), self.v(x)
         recorded = torch.is_grad_enabled() and q.requires_grad
         if recorded and static_max is not None:
@@ -105,9 +115,14 @@ class Attention(nn.Module):
         if impl == "xla":
             o, _ = pk_fwd_plain(q, k, v, scale=scale, num_heads=self.num_heads,
                                 static_max=static_max)
+        elif recorded and packed_supported(H, D // H, D):
+            o = flash_attention_packed(q, k, v, scale=scale, num_heads=H)
+        elif recorded and hybrid_supported(H, D // H, D):
+            o = flash_attention_hybrid(q, k, v, scale=scale, num_heads=H)
         elif recorded:
-            o = flash_attention_packed(q, k, v, scale=scale,
-                                       num_heads=self.num_heads)
+            heads = (B, S, H, D // H)
+            o = flash_attention(q.view(heads), k.view(heads), v.view(heads),
+                                scale=scale).reshape(B, S, D)
         else:
             o, _ = pk_fwd(q, k, v, scale=scale, num_heads=self.num_heads,
                           static_max=static_max)
@@ -142,9 +157,29 @@ class EncoderBlock(nn.Module):
         return x + self.mlp(self.ln2(x))
 
 
+def fused_ln_enabled() -> bool:
+    """The JAX package's switch, read at call time: OWLVIT_FUSED_LN=1 (the
+    default is off)."""
+    return os.environ.get("OWLVIT_FUSED_LN", "0") == "1"
+
+
 def encoder(blocks, x: torch.Tensor, *, impl: str = "auto",
             static_max: Optional[float] = None) -> torch.Tensor:
-    """Run a sequence of EncoderBlocks in order."""
+    """Run a sequence of EncoderBlocks in order.
+
+    With a kernel impl (not "xla") and OWLVIT_FUSED_LN=1, the residual
+    stream is carried as a pending (res, branch) pair from (x, 0), so that
+    every layer boundary is one fused add+LayerNorm (`add_ln`) instead of
+    an add and a LayerNorm: the JAX package's fused branch, the same
+    function up to summation order."""
+    if impl != "xla" and fused_ln_enabled():
+        res, br = x, torch.zeros_like(x)
+        for block in blocks:
+            xi, y1 = add_ln(res, br, block.ln1)
+            a = block.attn(y1, impl=impl, static_max=static_max)
+            res, y2 = add_ln(xi, a, block.ln2)
+            br = block.mlp(y2)
+        return res + br
     for block in blocks:
         x = block(x, impl=impl, static_max=static_max)
     return x

@@ -1,7 +1,7 @@
 """OWL-ViT detector, query-bank path (counterpart of
 owlvit_tpu/models/owlvit.py: `init`, `image_embedder`, `_merge_feats`,
 `box_predictor`, `class_embeds`, `class_predictor_querybank`,
-`forward_train`).
+`forward_train`, `embed_prefix`, `forward_train_from_prefix`).
 
 The parameters live in an `OwlViT` module whose attribute names follow the
 JAX parameter tree; the functions below keep the JAX package's signatures
@@ -134,5 +134,36 @@ def class_predictor_querybank(params: OwlViT, cfg: OwlViTConfig, image_feats,
 def forward_train(params: OwlViT, cfg: OwlViTConfig, pixel_values):
     """[B, H, W, 3] -> (pred_boxes xyxy [B, P, 4], sims [B, P, C])."""
     feats = image_embedder(params, cfg, pixel_values)
+    return (box_predictor(params, cfg, feats),
+            class_predictor_querybank(params, cfg, feats))
+
+
+def embed_prefix(params: OwlViT, cfg: OwlViTConfig, pixel_values):
+    """Frozen-backbone prefix activations [B, S, D], S = num_patches + 1:
+    the embeddings and the frozen layers[0 : L-k] under no_grad. A pure
+    function of (frozen parameters, pixels) when cfg.trainable_last_k is
+    set, which the cached train step stores once per image. The JAX package
+    returns the token axis padded to its attention block ([B, S_pad, D]);
+    the port never pads it, so a pool row is [S, D] and there is no
+    [:S_real] slice anywhere on the cached path."""
+    if cfg.trainable_last_k is None:
+        raise ValueError(
+            "embed_prefix requires trainable_last_k (a frozen prefix); "
+            "with full fine-tuning there is nothing constant to cache")
+    return vit.forward_prefix(
+        params.vision, cfg.vision, pixel_values, dtype=DTYPES[cfg.dtype],
+        attention_impl=cfg.attention_impl,
+        trainable_last_k=cfg.trainable_last_k,
+        static_softmax=cfg.static_softmax)
+
+
+def forward_train_from_prefix(params: OwlViT, cfg: OwlViTConfig, acts):
+    """forward_train continued from embed_prefix activations [B, S, D]:
+    bit-identical to forward_train on the same pixels, since vit.forward is
+    itself forward_prefix + forward_tail."""
+    last_hidden = vit.forward_tail(params.vision, cfg.vision, acts,
+                                   attention_impl=cfg.attention_impl,
+                                   trainable_last_k=cfg.trainable_last_k)
+    feats = _merge_feats(params, cfg, last_hidden)
     return (box_predictor(params, cfg, feats),
             class_predictor_querybank(params, cfg, feats))

@@ -11,31 +11,31 @@ dq, dk, dv [B, S, D] in the input dtype.
 `pk_fwd` and `pk_bwd` are the wrappers: a CPU tensor goes to the plain
 version, a CUDA tensor to the CUDA kernel in ../csrc/flash_attention_fwd.cu
 or ../csrc/flash_attention_bwd.cu, or the wrapper raises. The kernels are
-built with nvcc at first use into ../_build/ (one library, keyed by a hash of
-the sources and flags) and bound with ctypes, so importing this module needs
+built and bound by ops/_cuda.py at first use, so importing this module needs
 neither nvcc nor a card.
+
+The transposed functions (`flash_attention` over [B, S, H, hd], the
+counterpart of `_flash3` with `_fwd_kernel`, `_dq_kernel` and `_dkv_kernel`,
+and `flash_attention_hybrid`, packed forward and transposed backward) need
+no kernel of their own: the transposed layout [B*H, S, hd] is the packed
+layout with one head of 64 lanes, so `pk_fwd` and `pk_bwd` at num_heads=1
+compute those TPU kernels' functions. Each wrapper counts a launch once, where
+it makes it: a one-head launch (the transposed layout; no shipped model has a
+one-head packed layer) in `.transposed_launches`, any other in `.launches`.
+`packed_supported` and
+`hybrid_supported` keep the JAX package's routing predicates, the
+OWLVIT_PACKED_FLASH=0 switch included.
 """
 
 from __future__ import annotations
 
-import ctypes
-import functools
-import hashlib
 import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import Optional
 
 import torch
 
-_PKG = Path(__file__).resolve().parent.parent
-CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+from ._cuda import DTYPE_CODE, launch
+
 HEAD_DIM = 64  # the only head dim of B/32, B/16 and L/14; the kernel takes no other
 
 # Fixed softmax shift for non-fp32 serving (the JAX package's
@@ -115,77 +115,6 @@ def pk_bwd_plain(q, k, v, o, lse, do, *, scale: float, num_heads: int,
     return packed(dq), packed(dk), packed(dv)
 
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
-
-
-def build() -> Path:
-    """Compile csrc/*.cu with nvcc for sm_90a into one shared library under
-    _build/, named by a hash of the sources and flags; reuse it if present.
-    One nvcc per source, all started together, then one link. nvcc's
-    report (registers, shared memory, spills) goes beside it as .log."""
-    srcs = sorted(CSRC.glob("*.cu"))
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in srcs:
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    out = BUILD_DIR / f"libowlvit_kernels_{h.hexdigest()[:16]}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in srcs]
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-             for src, obj in zip(srcs, objs)]
-    logs, failed = [], False
-    for src, proc in zip(srcs, procs):
-        stdout, stderr = proc.communicate()
-        logs.append(f"== {src.name}\n{stdout}{stderr}")
-        failed |= proc.returncode != 0
-    try:
-        if failed:
-            raise RuntimeError("nvcc failed:\n" + "\n".join(logs))
-        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
-                              capture_output=True, text=True)
-        if link.returncode != 0:
-            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
-    finally:
-        for obj in objs:
-            obj.unlink(missing_ok=True)
-    out.with_suffix(".log").write_text("\n".join(logs))
-    os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
-    return out
-
-
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
-    lib.owlvit_pk_fwd.argtypes = (
-        [ctypes.c_void_p] * 5
-        + [ctypes.c_int] * 5
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-           ctypes.c_void_p]
-    )
-    lib.owlvit_pk_fwd.restype = ctypes.c_int
-    lib.owlvit_pk_bwd.argtypes = (
-        [ctypes.c_void_p] * 10
-        + [ctypes.c_int] * 5
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    )
-    lib.owlvit_pk_bwd.restype = ctypes.c_int
-    return lib
-
-
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-
 def _check_cuda_operands(name: str, num_heads: int, **tensors) -> tuple:
     """What both kernels take: CUDA tensors of one [B, S, D] shape and one
     dtype (float32 or bfloat16), head dim 64, contiguous, 16-byte aligned.
@@ -195,10 +124,12 @@ def _check_cuda_operands(name: str, num_heads: int, **tensors) -> tuple:
         raise ValueError(f"{name}: {', '.join(tensors)} must share one [B, S, D] "
                          f"shape: {[tuple(x.shape) for x in tensors.values()]}")
     B, S, D = q.shape
+    if B > 65535:  # the kernels' grid z dimension
+        raise ValueError(f"{name}: at most 65535 sequences per launch, got {B}")
     if D % num_heads or D // num_heads != HEAD_DIM:
         raise ValueError(f"{name}: the kernel takes head_dim {HEAD_DIM}; got "
                          f"D={D}, num_heads={num_heads}")
-    if q.dtype not in _DTYPE_CODE or any(x.dtype != q.dtype for x in tensors.values()):
+    if q.dtype not in DTYPE_CODE or any(x.dtype != q.dtype for x in tensors.values()):
         raise ValueError(f"{name}: operands must all be float32 or bfloat16: "
                          f"{[x.dtype for x in tensors.values()]}")
     for key, x in tensors.items():
@@ -206,6 +137,16 @@ def _check_cuda_operands(name: str, num_heads: int, **tensors) -> tuple:
             raise ValueError(f"{name}: {key} must be contiguous, 16-byte aligned "
                              f"and on {q.device}")
     return B, S, D
+
+
+def _count(wrapper, num_heads: int) -> None:
+    """One launch of `wrapper`'s kernel: a one-head launch is the transposed
+    layout [B*H, S, 64] (the TPU package's `_fwd_kernel` or `_dq_kernel` and
+    `_dkv_kernel`), any other the packed layout."""
+    if num_heads == 1:
+        wrapper.transposed_launches += 1
+    else:
+        wrapper.launches += 1
 
 
 def _valid(valid_len: Optional[int], S: int) -> int:
@@ -223,7 +164,8 @@ def pk_fwd(q, k, v, *, scale: float, num_heads: int,
     static_max: None for the per-row max, or C for exp(s - C) with
     lse = C + log l (see `resolve_static_max`). valid_len: keys at index >=
     valid_len are masked (default S). CPU tensors run `pk_fwd_plain`; CUDA
-    tensors run the kernel, and `pk_fwd.launches` counts each launch."""
+    tensors run the kernel, and `pk_fwd.launches` counts each launch
+    (`pk_fwd.transposed_launches` at num_heads=1)."""
     if q.device.type == "cpu":
         return pk_fwd_plain(q, k, v, scale=scale, num_heads=num_heads,
                             valid_len=valid_len, static_max=static_max)
@@ -233,22 +175,17 @@ def pk_fwd(q, k, v, *, scale: float, num_heads: int,
     valid = _valid(valid_len, S)
     o = torch.empty_like(q)
     lse = torch.empty((B, num_heads, S), dtype=torch.float32, device=q.device)
-    lib = _library()
-    with torch.cuda.device(q.device):
-        err = lib.owlvit_pk_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), B, S, num_heads, HEAD_DIM, valid, float(scale),
-            int(static_max is not None),
-            0.0 if static_max is None else float(static_max),
-            _DTYPE_CODE[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    if err:
-        raise RuntimeError(f"pk_fwd kernel launch failed: CUDA error {err}")
-    pk_fwd.launches += 1
+    launch("owlvit_pk_fwd", q.device,
+           q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+           lse.data_ptr(), B, S, num_heads, HEAD_DIM, valid, float(scale),
+           int(static_max is not None),
+           0.0 if static_max is None else float(static_max),
+           DTYPE_CODE[q.dtype])
+    _count(pk_fwd, num_heads)
     return o, lse
 
 
-pk_fwd.launches = 0
+pk_fwd.launches = pk_fwd.transposed_launches = 0
 
 
 def pk_bwd(q, k, v, o, lse, do, *, scale: float, num_heads: int,
@@ -259,8 +196,9 @@ def pk_bwd(q, k, v, o, lse, do, *, scale: float, num_heads: int,
     the cotangent of o. valid_len: keys at index >= valid_len are masked
     and query rows >= valid_len contribute nothing (default S). CPU tensors
     run `pk_bwd_plain`; CUDA tensors run the kernel, and `pk_bwd.launches`
-    counts each launch. In bf16 the kernel adds dq up with fp32 atomics, so
-    dq may differ from run to run in its last fp32 bits before the cast."""
+    counts each launch (`pk_bwd.transposed_launches` at num_heads=1). In
+    bf16 the kernel adds dq up with fp32 atomics, so dq may differ from run
+    to run in its last fp32 bits before the cast."""
     if q.device.type == "cpu":
         return pk_bwd_plain(q, k, v, o, lse, do, scale=scale,
                             num_heads=num_heads, valid_len=valid_len)
@@ -279,22 +217,16 @@ def pk_bwd(q, k, v, o, lse, do, *, scale: float, num_heads: int,
     dq = (torch.zeros((B, S, D), dtype=torch.float32, device=q.device) if bf16
           else torch.empty_like(q))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    lib = _library()
-    with torch.cuda.device(q.device):
-        err = lib.owlvit_pk_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), do.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), B, S, num_heads, HEAD_DIM, valid,
-            float(scale), _DTYPE_CODE[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    if err:
-        raise RuntimeError(f"pk_bwd kernel launch failed: CUDA error {err}")
-    pk_bwd.launches += 1
+    launch("owlvit_pk_bwd", q.device,
+           q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+           lse.data_ptr(), do.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+           dk.data_ptr(), dv.data_ptr(), B, S, num_heads, HEAD_DIM, valid,
+           float(scale), DTYPE_CODE[q.dtype])
+    _count(pk_bwd, num_heads)
     return (dq.to(q.dtype) if bf16 else dq), dk, dv
 
 
-pk_bwd.launches = 0
+pk_bwd.launches = pk_bwd.transposed_launches = 0
 
 
 class _FlashAttentionPacked(torch.autograd.Function):
@@ -323,3 +255,105 @@ def flash_attention_packed(q, k, v, *, scale: float, num_heads: int):
     The fixed-shift softmax has no place here: it is for forward-only
     calls."""
     return _FlashAttentionPacked.apply(q, k, v, float(scale), int(num_heads))
+
+
+# heads per group in the JAX package's packed kernels: GROUP_LANES // hd
+GROUP_LANES = 128
+
+
+def _group_heads(num_heads: int, head_dim: int) -> int:
+    return max(1, min(num_heads, GROUP_LANES // head_dim))
+
+
+def packed_supported(num_heads: int, head_dim: int, D: int) -> bool:
+    """The JAX package's predicate for the packed forward and backward;
+    OWLVIT_PACKED_FLASH=0 (read at call time) turns it off, and a recorded
+    attention call then takes the hybrid path."""
+    if os.environ.get("OWLVIT_PACKED_FLASH", "1") == "0":
+        return False
+    return hybrid_supported(num_heads, head_dim, D)
+
+
+def hybrid_supported(num_heads: int, head_dim: int, D: int) -> bool:
+    """The JAX package's predicate for the hybrid path: the heads split into
+    whole groups. When it fails (an odd head count at hd 64), a recorded
+    call takes the transposed `flash_attention`."""
+    hg = _group_heads(num_heads, head_dim)
+    return num_heads % hg == 0 and hg * head_dim <= D
+
+
+def _to3(x):
+    """[B, S, H, hd] -> [B*H, S, hd], contiguous."""
+    B, S, H, hd = x.shape
+    return x.transpose(1, 2).reshape(B * H, S, hd).contiguous()
+
+
+def _from3(x, B: int, H: int):
+    """[B*H, S, hd] -> [B, S, H, hd]."""
+    _, S, hd = x.shape
+    return x.reshape(B, H, S, hd).transpose(1, 2)
+
+
+class _FlashAttention3(torch.autograd.Function):
+    """Attention over [B, S, H, hd] through the transposed layout: the
+    counterpart of the JAX package's `_flash3` custom_vjp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        B, _, H, _ = q.shape
+        q3, k3, v3 = _to3(q), _to3(k), _to3(v)
+        o3, lse = pk_fwd(q3, k3, v3, scale=scale, num_heads=1)
+        ctx.save_for_backward(q3, k3, v3, o3, lse)
+        ctx.scale, ctx.B, ctx.H = scale, B, H
+        return _from3(o3, B, H)
+
+    @staticmethod
+    def backward(ctx, do):
+        q3, k3, v3, o3, lse = ctx.saved_tensors
+        grads = pk_bwd(q3, k3, v3, o3, lse, _to3(do), scale=ctx.scale, num_heads=1)
+        return (*(_from3(g, ctx.B, ctx.H) for g in grads), None)
+
+
+def flash_attention(q, k, v, *, scale: float):
+    """Differentiable attention over all S tokens, q, k, v and the output
+    [B, S, H, hd] (the JAX package's `flash_attention` without padding,
+    bias or mask): relayout to [B*H, S, hd] and `pk_fwd` at one head (the
+    per-row max; lse [B*H, 1, S]), in the backward `pk_bwd` at one head,
+    then back. All S keys are real: the port does not pad."""
+    return _FlashAttention3.apply(q, k, v, float(scale))
+
+
+class _FlashAttentionHybrid(torch.autograd.Function):
+    """Packed forward, transposed backward: the counterpart of the JAX
+    package's `_flash_hybrid` custom_vjp and `_transposed_bwd_from_packed`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, num_heads):
+        o, lse = pk_fwd(q, k, v, scale=scale, num_heads=num_heads)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale, ctx.num_heads = scale, num_heads
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        B, S, D = q.shape
+        H = ctx.num_heads
+
+        def to3(x):  # [B, S, D] -> [B*H, S, hd]
+            return _to3(x.reshape(B, S, H, D // H))
+
+        def from3(x):  # [B*H, S, hd] -> [B, S, D]
+            return _from3(x, B, H).reshape(B, S, D)
+
+        grads = pk_bwd(to3(q), to3(k), to3(v), to3(o), lse.reshape(B * H, 1, S),
+                       to3(do), scale=ctx.scale, num_heads=1)
+        return (*(from3(g) for g in grads), None, None)
+
+
+def flash_attention_hybrid(q, k, v, *, scale: float, num_heads: int):
+    """Differentiable packed attention ([B, S, D] in and out) whose forward
+    is `pk_fwd` and whose backward relayouts q, k, v, o, do and lse to the
+    transposed layout and runs `pk_bwd` at one head: the path a recorded call
+    takes under OWLVIT_PACKED_FLASH=0."""
+    return _FlashAttentionHybrid.apply(q, k, v, float(scale), int(num_heads))

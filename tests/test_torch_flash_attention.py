@@ -17,6 +17,7 @@ import pytest
 import torch
 
 import owlvit_tpu.ops.flash_attention as jfa
+from owlvit_tpu_torch.ops import _cuda
 from owlvit_tpu_torch.ops import flash_attention as tfa
 
 B, S, H, HD, VALID = 2, 256, 2, 64, 200  # S a BLOCK_Q multiple; keys >= VALID masked
@@ -134,7 +135,7 @@ def test_missing_nvcc_is_reported(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        tfa._nvcc()
+        _cuda._nvcc()
 
 
 def test_imports_without_triton_or_nvcc(tmp_path):

@@ -152,7 +152,7 @@ def test_lr_schedule_equals_optax(runs, schedule, warmup):
 
 @pytest.mark.parametrize("field,value", [
     ("grad_accum", 2), ("ema_decay", 0.99), ("augment", True),
-    ("augment_hflip", True), ("cache_backbone", True), ("mesh_data", 2),
+    ("augment_hflip", True), ("mesh_data", 2),
     ("checkpoint_dir", "ckpt")])
 def test_unported_options_refused(field, value):
     cfg = tconfig.Config(data=tconfig.DataConfig(),
