@@ -14,6 +14,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -57,13 +58,16 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def build() -> Path:
+def build(extra_flags: tuple = ()) -> Path:
     """Compile csrc/*.cu with nvcc for sm_90a into one shared library under
     _build/, named by a hash of the sources and flags; reuse it if present.
     One nvcc per source, all started together, then one link. nvcc's
-    report (registers, shared memory, spills) goes beside it as .log."""
+    report (registers, shared memory, spills) goes beside it as .log.
+    extra_flags (e.g. a -D of a timing-only variant) make another library
+    beside the default one."""
     srcs = sorted(CSRC.glob("*.cu"))
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    flags = (*NVCC_FLAGS, *extra_flags)
+    h = hashlib.sha256(" ".join(flags).encode())
     for src in srcs:
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -74,7 +78,7 @@ def build() -> Path:
     nvcc = _nvcc()
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in srcs]
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+    procs = [subprocess.Popen([nvcc, *flags, "-c", "-o", str(obj), str(src)],
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for src, obj in zip(srcs, objs)]
     logs, failed = [], False
@@ -97,10 +101,31 @@ def build() -> Path:
     return out
 
 
+def ptxas_report(lib_path: Path) -> dict:
+    """nvcc -Xptxas -v's report of the build at `lib_path`, per entry
+    function: {mangled name: [its stack and spills line, its registers
+    line]}."""
+    out, current = {}, None
+    for line in lib_path.with_suffix(".log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            current = m.group(1)
+            out[current] = []
+        elif current and ("registers" in line or "spill" in line):
+            out[current].append(line.replace("ptxas info    :", "").strip())
+    return out
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The built library with every entry point's argument types set."""
-    lib = ctypes.CDLL(str(build()))
+    return bind(build())
+
+
+def bind(path: Path) -> ctypes.CDLL:
+    """Load the library at `path` and set every entry point's argument
+    types."""
+    lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

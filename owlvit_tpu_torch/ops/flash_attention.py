@@ -197,8 +197,11 @@ def pk_bwd(q, k, v, o, lse, do, *, scale: float, num_heads: int,
     and query rows >= valid_len contribute nothing (default S). CPU tensors
     run `pk_bwd_plain`; CUDA tensors run the kernel, and `pk_bwd.launches`
     counts each launch (`pk_bwd.transposed_launches` at num_heads=1). In
-    bf16 the kernel adds dq up with fp32 atomics, so dq may differ from run
-    to run in its last fp32 bits before the cast."""
+    bf16 each 128-key block of the kernel adds its dq partials into a zeroed
+    fp32 buffer with four-wide vector reductions (`red.global.add.v4.f32`;
+    no scalar atomics), in an order that changes from run to run: dq may
+    differ in its last fp32 bits before the cast, so by one bf16 ulp after
+    it; dk and dv are the same from run to run."""
     if q.device.type == "cpu":
         return pk_bwd_plain(q, k, v, o, lse, do, scale=scale,
                             num_heads=num_heads, valid_len=valid_len)

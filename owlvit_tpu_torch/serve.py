@@ -103,7 +103,9 @@ class DetectorServer:
     max_inflight : fetched batches waiting for the completion thread before
         the dispatch thread blocks.
     max_queue : admission bound; `submit` raises `ServerOverloaded` beyond it.
-    device : where the model runs; params are moved there.
+    device : where the model runs; params are moved there. The card by
+        default: a server built without a device where there is no CUDA
+        raises, and runs on the CPU only when the caller asks for it.
     """
 
     def __init__(
@@ -120,7 +122,7 @@ class DetectorServer:
         autostart: bool = True,
         max_inflight: int = 2,
         max_queue: int = 1024,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
     ):
         if (not buckets or list(buckets) != sorted(set(buckets))
                 or buckets[0] < 1):
@@ -132,6 +134,9 @@ class DetectorServer:
         self.max_delay_s = max_delay_ms / 1e3
         self.image_size = cfg.vision.image_size
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("DetectorServer: no CUDA device; pass device='cpu' "
+                               "to serve from the CPU")
         self._params = params.to(self.device).eval()
         self._thresholds = dict(confidence_threshold=confidence_threshold,
                                 iou_threshold=iou_threshold, top_k=top_k)

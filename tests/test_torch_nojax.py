@@ -18,7 +18,7 @@ from owlvit_tpu_torch.serve import DetectorServer
 cfg = get_config("tiny")
 model = owlvit.init(cfg, torch.Generator().manual_seed(0), num_queries=12)
 img = np.random.default_rng(0).integers(0, 255, (96, 96, 3), dtype=np.uint8)
-with DetectorServer(model, cfg, buckets=(1,), top_k=8) as srv:
+with DetectorServer(model, cfg, buckets=(1,), top_k=8, device="cpu") as srv:
     res = srv.detect(img, timeout=120)
 assert res["boxes"].shape[1] == 4 and np.isfinite(res["boxes"]).all()
 leaked = sorted(m for m in sys.modules

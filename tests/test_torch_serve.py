@@ -53,7 +53,7 @@ def test_matches_jax_server(detector):
     kw = dict(buckets=(4,), max_delay_ms=50, top_k=16, warmup=False)
     with JaxDetectorServer(jax_params, jax_get_config("tiny"), **kw) as jsrv:
         ref = [f.result(timeout=120) for f in [jsrv.submit(im) for im in images]]
-    with DetectorServer(model, cfg, **kw) as srv:
+    with DetectorServer(model, cfg, device="cpu", **kw) as srv:
         got = [f.result(timeout=120) for f in [srv.submit(im) for im in images]]
     for r, g in zip(ref, got):
         np.testing.assert_array_equal(g["classes"], r["classes"])
@@ -69,7 +69,7 @@ def test_padded_batch_matches_direct(detector):
     S = cfg.vision.image_size
     images = _rand_images(3, S)
     ref = _direct(model, cfg, images)
-    with DetectorServer(model, cfg, buckets=(8,), max_delay_ms=50, top_k=16,
+    with DetectorServer(model, cfg, device="cpu", buckets=(8,), max_delay_ms=50, top_k=16,
                         warmup=False) as srv:
         results = [f.result(timeout=120) for f in [srv.submit(im) for im in images]]
     for i, res in enumerate(results):
@@ -85,7 +85,7 @@ def test_bucket_selection_and_stats(detector):
     """Requests queued before start drain as one batch into the smallest
     bucket that fits; stats record the padding."""
     model, cfg, _ = detector
-    srv = DetectorServer(model, cfg, buckets=(2, 4, 8), max_delay_ms=20,
+    srv = DetectorServer(model, cfg, device="cpu", buckets=(2, 4, 8), max_delay_ms=20,
                          top_k=8, warmup=False, autostart=False)
     futs = [srv.submit(im) for im in _rand_images(3, cfg.vision.image_size, seed=1)]
     srv.start()
@@ -103,7 +103,7 @@ def test_bucket_selection_and_stats(detector):
 def test_backlog_splits_into_full_batches(detector):
     """9 queued requests over buckets (1, 8): one batch of 8, one of 1."""
     model, cfg, _ = detector
-    srv = DetectorServer(model, cfg, buckets=(1, 8), top_k=8, warmup=False,
+    srv = DetectorServer(model, cfg, device="cpu", buckets=(1, 8), top_k=8, warmup=False,
                          autostart=False)
     futs = [srv.submit(im) for im in _rand_images(9, cfg.vision.image_size, seed=2)]
     srv.start()
@@ -116,7 +116,7 @@ def test_backlog_splits_into_full_batches(detector):
 
 def test_single_request_flushes_after_delay(detector):
     model, cfg, _ = detector
-    with DetectorServer(model, cfg, buckets=(4,), max_delay_ms=10, top_k=8,
+    with DetectorServer(model, cfg, device="cpu", buckets=(4,), max_delay_ms=10, top_k=8,
                         warmup=True) as srv:
         t0 = time.perf_counter()
         srv.detect(_rand_images(1, cfg.vision.image_size, seed=2)[0], timeout=120)
@@ -133,7 +133,7 @@ def test_client_resolution_rescale(detector):
     S = cfg.vision.image_size
     w, h = 200, 120
     img = np.random.default_rng(4).integers(0, 255, (h, w, 3), dtype=np.uint8)
-    with DetectorServer(model, cfg, buckets=(1,), max_delay_ms=1, top_k=8,
+    with DetectorServer(model, cfg, device="cpu", buckets=(1,), max_delay_ms=1, top_k=8,
                         warmup=False) as srv:
         res = srv.detect(img, timeout=120)
     resized = np.asarray(Image.fromarray(img).resize((S, S), Image.BICUBIC))
@@ -148,7 +148,7 @@ def test_client_resolution_rescale(detector):
 def test_overload_and_bad_input(detector):
     model, cfg, _ = detector
     S = cfg.vision.image_size
-    srv = DetectorServer(model, cfg, buckets=(1,), warmup=False, autostart=False,
+    srv = DetectorServer(model, cfg, device="cpu", buckets=(1,), warmup=False, autostart=False,
                          max_queue=2)
     imgs = _rand_images(3, S, seed=6)
     with pytest.raises(ValueError):
@@ -164,7 +164,7 @@ def test_close_fails_waiting_requests(detector):
     """A server closed before it ran fails its queued futures, and refuses
     submissions after close."""
     model, cfg, _ = detector
-    srv = DetectorServer(model, cfg, buckets=(1,), warmup=False, autostart=False)
+    srv = DetectorServer(model, cfg, device="cpu", buckets=(1,), warmup=False, autostart=False)
     fut = srv.submit(_rand_images(1, cfg.vision.image_size)[0])
     srv.close()
     with pytest.raises(RuntimeError, match="closed"):
@@ -178,7 +178,7 @@ def test_cancelled_request_does_not_stop_the_server(detector):
     the worker threads down: later requests are still answered."""
     model, cfg, _ = detector
     imgs = _rand_images(3, cfg.vision.image_size, seed=8)
-    srv = DetectorServer(model, cfg, buckets=(4,), top_k=4, warmup=False,
+    srv = DetectorServer(model, cfg, device="cpu", buckets=(4,), top_k=4, warmup=False,
                          autostart=False)
     gone = srv.submit(imgs[0])
     kept = srv.submit(imgs[1])
@@ -196,7 +196,7 @@ def test_submit_racing_close_never_hangs(detector):
 
     model, cfg, _ = detector
     img = _rand_images(1, cfg.vision.image_size, seed=7)[0]
-    srv = DetectorServer(model, cfg, buckets=(1, 4), max_delay_ms=1, top_k=4,
+    srv = DetectorServer(model, cfg, device="cpu", buckets=(1, 4), max_delay_ms=1, top_k=4,
                          warmup=False)
     accepted, lock = [], threading.Lock()
 
@@ -225,3 +225,16 @@ def test_submit_racing_close_never_hangs(detector):
     assert accepted
     for f in accepted:
         assert "boxes" in f.result(timeout=30)
+
+
+def test_default_device_is_the_card(detector):
+    """Without `device` the server targets CUDA: on a machine with a card it
+    runs there; without one it raises instead of serving from the CPU."""
+    model, cfg, _ = detector
+    if torch.cuda.is_available():
+        srv = DetectorServer(model, cfg, warmup=False, autostart=False)
+        assert srv.device.type == "cuda"
+        srv.close()
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            DetectorServer(model, cfg, warmup=False, autostart=False)
