@@ -7,7 +7,8 @@ Phases, each printing its numbers on a line of its own:
   2. build: the kernels from owlvit_tpu_torch/csrc (attention forward and
      backward, fused add+LayerNorm), one nvcc per source, started together;
      nvcc's registers, stack and spills per kernel, the bf16 attention
-     backward's under a key of their own.
+     forward's and backward's under keys of their own (the forward must not
+     spill).
   3. kernel: pk_fwd against its plain PyTorch version on the card at the
      B/32, B/16 and L/14 attention shapes (batch 4, valid_len < padded S),
      bf16 and fp32, fixed-shift (C=20) and per-row-max softmax.
@@ -32,10 +33,12 @@ Phases, each printing its numbers on a line of its own:
   8. main_path_kernel: pk_fwd against its plain version at the shapes the
      served forward gives it ([8, 2305, 768] and [1, 2305, 768], C = 20, no
      padding) and at the train step's [32, 2305, 768] (per-row max), with
-     scaled_dot_product_attention's forward time beside it; then pk_bwd at
-     [32, 2305, 768] bf16 beside its plain version (on batch slices of 4)
-     and scaled_dot_product_attention's forward + backward, and launched
-     twice: dk and dv bit-equal, dq within its reductions' fp32 order.
+     scaled_dot_product_attention's forward time beside it, each launched
+     twice (o and lse bit-equal); then pk_bwd at [32, 2305, 768] bf16
+     beside its plain version (on batch slices of 4) and
+     scaled_dot_product_attention's forward + backward, and launched twice:
+     dk and dv bit-equal, dq within its reductions' fp32 order; then one
+     line with both attention kernels' times (attention_times).
   9. train: 4 uncached steps of Trainer.train_step, B/16 bf16, random
      weights (seed 0), a 240-query bank, batch 32, max_gt 64, ~7 random
      boxes per image, lr 3e-6, weight decay 0.1: finite terms, launch counts
@@ -293,11 +296,16 @@ def phase_build():
     _cuda.library()
     build_s = time.perf_counter() - t0
     report = _cuda.ptxas_report(lib_path)
-    # the bf16 attention backward (main and delta kernels) on its own key
-    bwd = {name: lines for name, lines in report.items() if "pk_bwd" in name and "bf16" in name}
-    check(len(bwd) == 2, f"ptxas report of the bf16 attention backward: {bwd}")
+    # the bf16 attention kernels on keys of their own: the forward (both
+    # softmax modes), the backward (main and delta kernels)
+    fwd, bwd = ({name: lines for name, lines in report.items() if kern in name and "bf16" in name}
+                for kern in ("pk_fwd", "pk_bwd"))
+    check(len(fwd) == 2 and len(bwd) == 2,
+          f"ptxas report of the bf16 attention kernels: {fwd} {bwd}")
+    check(all("0 bytes spill stores" in " ".join(lines) for lines in fwd.values()),
+          f"the bf16 attention forward spills registers: {fwd}")
     emit("build", seconds=build_s, library=lib_path.name, ptxas=report,
-         ptxas_pk_bwd_bf16=bwd)
+         ptxas_pk_fwd_bf16=fwd, ptxas_pk_bwd_bf16=bwd)
 
 
 def attention_shapes():
@@ -459,8 +467,9 @@ def trained_shape_bwd(cfg, batch=32, slice_=4):
 
 def fwd_row(vc, batch, static, slice_=8):
     """pk_fwd at [batch, 2305, D] (no padding, so the last query tile is
-    ragged) against its plain version on batch slices of 8, with times and
-    scaled_dot_product_attention's forward beside it."""
+    ragged) against its plain version on batch slices of 8, launched twice
+    (o and lse bit-equal), with times and scaled_dot_product_attention's
+    forward beside it."""
     S, D, H, scale = vc.num_patches + 1, vc.hidden_size, vc.num_heads, vc.head_dim**-0.5
     args = dict(scale=scale, num_heads=H, static_max=static)
     g = torch.Generator(device="cuda").manual_seed(7 + batch)
@@ -481,6 +490,11 @@ def fwd_row(vc, batch, static, slice_=8):
     err = {"o_max_abs": o_abs, "o_max_rel": o_abs / o_peak, "lse_max_abs": l_abs}
     check(err["o_max_rel"] <= TOL_BF16_O_REL and err["lse_max_abs"] <= TOL_BF16_LSE,
           f"shape [{batch}, {S}, {D}]: {err}")
+    # the forward adds nothing up across blocks: a second launch is bit-equal
+    o_again, l_again = fa.pk_fwd(q, k, v, **args)
+    err["repeat_bit_equal"] = torch.equal(o_again, o_k) and torch.equal(l_again, l_k)
+    check(err["repeat_bit_equal"], f"shape [{batch}, {S}, {D}]: two launches differ")
+    del o_again, l_again
     bound_ms, bound_by = fwd_bound(batch, S, D, H)
     row = {"shape": [batch, S, D], "softmax": "dynamic" if static is None else f"C={static}",
            **err, "ms": cuda_ms(lambda: fa.pk_fwd(q, k, v, **args), 20),
@@ -1089,6 +1103,14 @@ def main():
     for row in served:
         emit("main_path_kernel", **row)
     bwd = trained_shape_bwd(cfg)
+    # the two attention kernels' times side by side, the shared header's
+    # effect on the backward included
+    emit("attention_times", pk_fwd_ms={f"[{r['shape'][0]}, {r['shape'][1]}, {r['shape'][2]}] "
+                                       f"{r['softmax']}": r["ms"] for r in served},
+         pk_fwd_transposed_ms=transposed["fwd"]["ms"], pk_bwd_ms=bwd["ms"],
+         pk_bwd_transposed_ms=transposed["bwd"]["ms"],
+         sdpa_fwd_ms={str(r["shape"][0]): r["library_ms"] for r in served},
+         sdpa_fwd_bwd_ms=bwd["library_ms"])
     train_launches = phase_train()
     cached_launches = phase_train_cached()
     launches = {k: sum(run[k] for run in (serve_launches, train_launches, cached_launches))

@@ -12,94 +12,195 @@
 // Two softmax modes: the per-row running max (online softmax), or a fixed
 // shift C (exp(s - C), lse = C + log l, no max and no rescale).
 //
-// What bounds it: at S ~ 2305, hd = 64 (B/16) each block reads its 64x64 q
-// tile once and streams K/V tiles that stay in L2, so by arithmetic intensity
-// it is compute-bound on the two products (4*S*S*hd flops per head) and the
-// S*S exps, not bound by HBM. It runs far below the tensor cores' peak; which
-// unit inside the SM limits it (loads not overlapped with math, exp issue)
-// has not been measured.
+// What bounds it: two products of 2*S*S*hd flops per (batch, head) against
+// 4*B*S*D*2 bytes of q, k, v and o in bf16: at B/16 (S = 2305) about 0.5
+// TFLOP against 0.45 GB at batch 32, far above the H100's ~295 flops per
+// byte, so the bound is the tensor cores. Beside them run the S*S exps, one
+// per score, on the SFU's ~16 a clock per SM: at the tensor cores' peak
+// they take as long as the products, so a warpgroup's softmax has to run
+// while products run. The first design (mma.sync from scalar shared loads,
+// synchronous K/V tiles between two barriers, a 4-warp block per 64
+// queries) was held at 15% of the bound by load instructions and latency.
 //
 // Design. The TPU kernel holds a whole K/V row in VMEM and does one
-// full-row softmax; here one block owns (batch, head, 64-row query tile) and
-// loops over 64-key K/V tiles staged through shared memory, so nothing scales
-// with S except the loop count, and ragged tails (S not a multiple of 64, or
-// valid_len < S) are masked in the kernel: no padding is needed.
-//   bf16: 4 warps, each owns 16 query rows; q.k^T and p.v run on the tensor
-//         cores through mma.sync m16n8k16 (bf16 in, fp32 accumulate). The
-//         score accumulators are re-packed in registers as the A operand of
-//         p.v, so p never touches shared memory.
+// full-row softmax; here one block of two warpgroups owns (batch, head,
+// 128-row query tile), each warpgroup 64 rows (each warp 16), and a loop
+// inside the block walks the 64-key K/V tiles, so nothing scales with S
+// except the loop count, and ragged tails (S not a multiple of 64 or 128,
+// or valid_len < S) are masked in the kernel: no padding is needed.
+//   bf16: q*scale (rounded to bf16 once, as the TPU kernel scales its tile)
+// is stored once into 128-byte-swizzled shared memory; K and V tiles come
+// through a four-stage cp.async ring in the same layout, two tiles loading
+// ahead of the one computed, one barrier per tile. s = (q*scale) . k^T by
+// wgmma m64n64k16 with both operands K-major in shared memory; the online
+// softmax in the accumulators (the row max by two quad shuffles, exp as one
+// FMA and one ex2); p, rounded to bf16 and re-packed in registers, is the A
+// operand of o += p . v by wgmma with v read along its other axis. Step t
+// issues tile t's s product and tile t-1's p . v together and runs tile t's
+// softmax while p . v runs (FlashAttention-3's overlap inside a
+// warpgroup); the first s and the last p . v are peeled off the loop so
+// that no product sits under a branch, and the warpgroup index is
+// broadcast from lane 0: ptxas serialises every wgmma of a kernel where a
+// product sits under a branch it cannot prove uniform, or where the loop's
+// first and last steps take other branches. At most 128 registers a thread
+// (106) and 81 KB of shared memory let two blocks share an SM.
 //   fp32: one thread per query row with plain FMA (no fp32 tensor-core
-//         product keeps full fp32 precision); K/V rows are read as
-//         shared-memory broadcasts.
-// Given up for now: TMA and wgmma, a multi-stage cp.async pipeline (loads and
-// math do not overlap inside a block), ldmatrix, and a persistent schedule.
+// product keeps full fp32 precision); K/V rows are read as shared-memory
+// broadcasts.
+// Measured and given up: an 8-key product for a last tile of one key (S =
+// 2305 = 36*64 + 1; no gain), q*scale held in registers as the s product's
+// A operand (no gain: shared-memory bandwidth does not bound it), a branch
+// that lets a warpgroup past S skip its products (slower than the 64 rows
+// of work it saves), skipping o's rescale when no row max in the warp moved
+// (slower), and a producer warp feeding the ring through mbarriers, with or
+// without the two warpgroups issuing their products in turns (ping-pong):
+// 1.45x slower, for reasons not measured. Not tried: TMA, a persistent
+// schedule.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper_mma.cuh"
+
 namespace {
 
-constexpr int kHd = 64;   // head dim: B/32, B/16 and L/14 all use 64
-constexpr int kBq = 64;   // bf16: query rows per block
-constexpr int kBk = 64;   // bf16: keys per K/V tile
-constexpr int kThreads = 128;
-constexpr int kRow = kHd + 8;  // shared row stride (bf16): fragment reads hit 32 banks
+constexpr int kHd = 64;        // head dim: B/32, B/16 and L/14 all use 64
+constexpr int kBq = 128;       // bf16: query rows per block, 64 per warpgroup
+constexpr int kBk = 64;        // bf16: keys per K/V tile
+constexpr int kThreads = 256;  // bf16: two warpgroups
+constexpr int kStages = 4;     // bf16: K/V tiles in the cp.async ring
+constexpr int kAhead = kStages - 2;  // bf16: tiles loading ahead of the one computed
 
 constexpr int kBqF = 128;  // fp32: query rows per block (one per thread)
 constexpr int kBkF = 32;   // fp32: keys per K/V tile
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+// The bf16 kernel's dynamic shared memory (80 KB, plus 1 KB to align it;
+// two blocks fit on an SM). Every tile is a wgmma operand in the 128-byte
+// swizzled layout of hopper_mma.cuh.
+struct __align__(1024) FwdSmem {
+  __nv_bfloat16 q[kBq * kHd];  // q * scale
+  __nv_bfloat16 k[kStages][kBk * kHd];
+  __nv_bfloat16 v[kStages][kBk * kHd];
+};
+constexpr int kSmemBytes = sizeof(FwdSmem) + 1024;
 
-__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// c[16x8] += a[16x16] . b[16x8], bf16 inputs, fp32 accumulators.
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
-                                          const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// 64 rows x 64 bf16 of one head, rows >= S zero-filled, into shared memory.
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* sm,
-                                               const __nv_bfloat16* g, int row0,
-                                               int S, int D) {
+// K/V tile k0 of one head into ring stage `stage`, by cp.async: keys >=
+// valid_len zero-filled (their p is 0, and 0 . v must stay 0).
+__device__ __forceinline__ void load_kv_tile(FwdSmem& sm, int stage,
+                                             const __nv_bfloat16* k,
+                                             const __nv_bfloat16* v, int k0,
+                                             int valid_len, int D) {
   for (int i = threadIdx.x; i < kBk * (kHd / 8); i += kThreads) {
-    const int r = i >> 3, c = (i & 7) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S)
-      val = *reinterpret_cast<const uint4*>(g + (size_t)(row0 + r) * D + c);
-    *reinterpret_cast<uint4*>(sm + r * kRow + c) = val;
+    const int r = i >> 3, c = i & 7;
+    const bool in = k0 + r < valid_len;
+    const size_t at = (size_t)(in ? k0 + r : 0) * D + c * 8;
+    cp_async16(sm.k[stage] + sw_at(r, c), k + at, in);
+    cp_async16(sm.v[stage] + sw_at(r, c), v + at, in);
   }
 }
 
-__device__ __forceinline__ uint32_t q_pair(const __nv_bfloat16* sq, int r, int c,
-                                           float scale) {
-  // scale in the input dtype, as the TPU kernel does on its q tile
-  return pack_bf16(__bfloat162float(sq[r * kRow + c]) * scale,
-                   __bfloat162float(sq[r * kRow + c + 1]) * scale);
+constexpr int kColTiles = kBk / 8;  // 8-key column tiles of a K/V tile's scores
+
+// The online softmax of key tile k0 in the score accumulators (rows r0 and
+// r0+8 of this thread, column tile j in s[j]): keys >= valid_len masked, p =
+// exp(s - shift) in place (one FMA and one ex2), the partial row sums l
+// updated. Per-row max mode: m moves to the new row max, l is rescaled, and
+// a0 / a1 return the factor o must be rescaled by.
+template <bool kStatic>
+__device__ __forceinline__ void softmax_tile(float (&s)[kColTiles][4], int k0, int valid_len,
+                                             int t4, float static_max, float& m0, float& m1,
+                                             float& l0, float& l1, float& a0, float& a1) {
+  if (k0 + kColTiles * 8 > valid_len) {
+#pragma unroll
+    for (int j = 0; j < kColTiles; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (k0 + j * 8 + t4 * 2 + e >= valid_len) s[j][e] = s[j][e + 2] = -INFINITY;
+  }
+  // exp(s - shift) = 2^(s log2(e) - shift log2(e))
+  float sh0, sh1;
+  if (kStatic) {
+    sh0 = sh1 = static_max * kLog2e;
+  } else {
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int j = 0; j < kColTiles; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+    }
+    // the four threads of a group hold the same two rows
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    // key 0 is valid (valid_len >= 1), so mx is finite from the first tile
+    a0 = ex2((m0 - mx0) * kLog2e);
+    a1 = ex2((m1 - mx1) * kLog2e);
+    m0 = mx0;
+    m1 = mx1;
+    l0 *= a0;
+    l1 *= a1;
+    sh0 = mx0 * kLog2e;
+    sh1 = mx1 * kLog2e;
+  }
+#pragma unroll
+  for (int j = 0; j < kColTiles; ++j) {
+    s[j][0] = ex2(fmaf(s[j][0], kLog2e, -sh0));  // masked: 2^-inf == 0
+    s[j][1] = ex2(fmaf(s[j][1], kLog2e, -sh0));
+    s[j][2] = ex2(fmaf(s[j][2], kLog2e, -sh1));
+    s[j][3] = ex2(fmaf(s[j][3], kLog2e, -sh1));
+    l0 += s[j][0] + s[j][1];
+    l1 += s[j][2] + s[j][3];
+  }
+}
+
+// s = (q*scale) . k^T for the warpgroup's 64 rows and a 64-key tile, by
+// wgmma with both operands K-major in shared memory. Issued and committed,
+// not waited for.
+__device__ __forceinline__ void issue_scores(float (&s)[kColTiles][4], uint64_t qdesc,
+                                             uint64_t kdesc) {
+#pragma unroll
+  for (int kk = 0; kk < kHd / 16; ++kk)
+    wgmma_m64n64k16_ss(&s[0][0], qdesc + 2 * kk, kdesc + 2 * kk, kk);
+  wgmma_commit();
+}
+
+// o += p . v for a 64-key tile: p from registers (pa[c], the A fragment of
+// 16-key chunk c), v read along its other axis. Issued and committed, not
+// waited for. Keys past valid_len add 0: their p is 0 and their v rows
+// were zero-filled.
+__device__ __forceinline__ void issue_pv(float (&acc)[kHd / 8][4],
+                                         const uint32_t (&pa)[kColTiles / 2][4], uint64_t vdesc) {
+#pragma unroll
+  for (int c = 0; c < kColTiles / 2; ++c) wgmma_m64n64k16_bt(&acc[0][0], pa[c], vdesc + 128 * c);
+  wgmma_commit();
+}
+
+// p rounded to bf16: the score C fragments of column tiles 2c, 2c+1 are
+// exactly the A fragment of 16-key chunk c.
+__device__ __forceinline__ void pack_p(const float (&s)[kColTiles][4],
+                                       uint32_t (&pa)[kColTiles / 2][4]) {
+#pragma unroll
+  for (int c = 0; c < kColTiles / 2; ++c) {
+    pa[c][0] = pack_bf16(s[2 * c][0], s[2 * c][1]);
+    pa[c][1] = pack_bf16(s[2 * c][2], s[2 * c][3]);
+    pa[c][2] = pack_bf16(s[2 * c + 1][0], s[2 * c + 1][1]);
+    pa[c][3] = pack_bf16(s[2 * c + 1][2], s[2 * c + 1][3]);
+  }
 }
 
 template <bool kStatic>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
     pk_fwd_bf16(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v,
                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int S,
                 int H, int valid_len, float scale, float static_max) {
-  __shared__ __align__(16) __nv_bfloat16 sq[kBq * kRow];
-  __shared__ __align__(16) __nv_bfloat16 sk[kBk * kRow];
-  __shared__ __align__(16) __nv_bfloat16 sv[kBk * kRow];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  FwdSmem& sm = *reinterpret_cast<FwdSmem*>(
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023));
 
   const int h = blockIdx.y, b = blockIdx.z;
   const int q0 = blockIdx.x * kBq;
@@ -107,77 +208,77 @@ __global__ void __launch_bounds__(kThreads)
   const size_t base = (size_t)b * S * D + (size_t)h * kHd;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;  // mma group row, column pair
-  const int r0 = warp * 16 + g;            // this thread's rows: r0, r0 + 8
+  // warpgroup: rows 64 wg .. 64 wg + 63; broadcast from lane 0 so that the
+  // compiler sees it uniform over the warp (ptxas serialises every wgmma of
+  // a kernel whose control flow around them it cannot prove uniform)
+  const int wg = __shfl_sync(0xffffffffu, warp >> 2, 0);
+  const int r0 = (warp & 3) * 16 + g;      // this thread's rows in it: r0, r0 + 8
+  const __nv_bfloat16* kh = k + base;
+  const __nv_bfloat16* vh = v + base;
+  const int n_tiles = (valid_len + kBk - 1) / kBk;  // tiles past valid_len are all masked
 
-  load_tile_bf16(sq, q + base, q0, S, D);
-  __syncthreads();
-  uint32_t qa[kHd / 16][4];  // A fragments of the scaled q rows
 #pragma unroll
-  for (int kk = 0; kk < kHd / 16; ++kk) {
-    const int c = kk * 16 + t4 * 2;
-    qa[kk][0] = q_pair(sq, r0, c, scale);
-    qa[kk][1] = q_pair(sq, r0 + 8, c, scale);
-    qa[kk][2] = q_pair(sq, r0, c + 8, scale);
-    qa[kk][3] = q_pair(sq, r0 + 8, c + 8, scale);
+  for (int t = 0; t < kAhead; ++t) {  // fill the ring while q loads
+    if (t < n_tiles) load_kv_tile(sm, t, kh, vh, t * kBk, valid_len, D);
+    cp_async_commit();
+  }
+  // q * scale in the input dtype, as the TPU kernel scales its q tile; rows
+  // >= S zero; the first turn's fence and barrier publish it to wgmma
+  for (int i = threadIdx.x; i < kBq * (kHd / 8); i += kThreads) {
+    const int r = i >> 3, c = i & 7;
+    uint4 x = make_uint4(0u, 0u, 0u, 0u);
+    if (q0 + r < S) x = *reinterpret_cast<const uint4*>(q + base + (size_t)(q0 + r) * D + c * 8);
+    scale_bf16x8(x, scale);
+    *reinterpret_cast<uint4*>(sm.q + sw_at(r, c)) = x;
   }
 
+  const uint64_t qdesc = sw128_desc(sm.q + wg * 64 * kHd);
   float acc[kHd / 8][4];  // o rows r0 / r0+8, 8 column tiles of 8
 #pragma unroll
-  for (int d = 0; d < kHd / 8; ++d)
-    acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
+  for (int d = 0; d < kHd / 8; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY;  // running row max (dynamic mode)
   float l0 = 0.f, l1 = 0.f;              // partial row sums of this thread
+  float a0 = 1.f, a1 = 1.f;              // o's rescale for the current tile's row max
+  float s[kColTiles][4];                 // scores, then p, of the current tile
+  uint32_t pa[kColTiles / 2][4];         // p of the previous tile in bf16
 
-  const int n_tiles = (valid_len + kBk - 1) / kBk;  // tiles past valid_len are all masked
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile_bf16(sk, k + base, kt * kBk, S, D);
-    load_tile_bf16(sv, v + base, kt * kBk, S, D);
+  // Waits for tile t, then refills the stage tile t - 2 used (every
+  // warpgroup waited for that tile's p . v before this barrier).
+  auto next_tile = [&](int t) {
+    cp_async_wait<kAhead - 1>();
+    fence_proxy_async();  // the tiles (and q) are read by wgmma
     __syncthreads();
+    const int tn = t + kAhead;
+    if (tn < n_tiles) load_kv_tile(sm, tn % kStages, kh, vh, tn * kBk, valid_len, D);
+    cp_async_commit();
+  };
 
-    float s[kBk / 8][4];  // scores: key tiles of 8, rows r0 (0,1) and r0+8 (2,3)
-#pragma unroll
-    for (int j = 0; j < kBk / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kHd / 16; ++kk) {
-        const __nv_bfloat16* kp = sk + (j * 8 + g) * kRow + kk * 16 + t4 * 2;
-        uint32_t bf[2];
-        bf[0] = *reinterpret_cast<const uint32_t*>(kp);
-        bf[1] = *reinterpret_cast<const uint32_t*>(kp + 8);
-        mma_16816(s[j], qa[kk], bf);
-      }
-    }
-    if ((kt + 1) * kBk > valid_len) {
-#pragma unroll
-      for (int j = 0; j < kBk / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          if (kt * kBk + j * 8 + t4 * 2 + e >= valid_len)
-            s[j][e] = s[j][e + 2] = -INFINITY;
-    }
-
-    float shift0, shift1;
-    if (kStatic) {
-      shift0 = shift1 = static_max;
-    } else {
-      float mx0 = m0, mx1 = m1;
-#pragma unroll
-      for (int j = 0; j < kBk / 8; ++j) {
-        mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-        mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-      }
-      // the four threads of a group hold the same two rows
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-      // key 0 is valid (valid_len >= 1), so mx is finite from the first tile
-      const float a0 = __expf(m0 - mx0), a1 = __expf(m1 - mx1);
-      m0 = mx0;
-      m1 = mx1;
-      l0 *= a0;
-      l1 *= a1;
+  // Every warpgroup runs the products, one whose rows all lie past S too
+  // (on zero rows): a branch around them costs more than the one 64-row
+  // tile in 37 it saves at S = 2305. Step t issues s of tile t and p . v of
+  // tile t - 1 together and computes tile t's softmax while p . v runs; o
+  // is rescaled once it is done. The first s and the last p . v are peeled
+  // off the loop, so that the loop holds no branch around a product and
+  // ptxas can keep them asynchronous.
+  next_tile(0);
+  wgmma_fence();
+  issue_scores(s, qdesc, sw128_desc(sm.k[0]));
+  wgmma_wait_n<0>();
+  fence_operands(s);
+  softmax_tile<kStatic>(s, 0, valid_len, t4, static_max, m0, m1, l0, l1, a0, a1);
+  pack_p(s, pa);
+  for (int t = 1; t < n_tiles; ++t) {
+    next_tile(t);
+    wgmma_fence();
+    issue_scores(s, qdesc, sw128_desc(sm.k[t % kStages]));
+    issue_pv(acc, pa, sw128_desc(sm.v[(t - 1) % kStages]));
+    wgmma_wait_n<1>();  // the s product, committed first
+    fence_operands(s);
+    softmax_tile<kStatic>(s, t * kBk, valid_len, t4, static_max, m0, m1, l0, l1, a0, a1);
+    wgmma_wait_n<0>();  // the p . v product: o and pa are free
+    fence_operands(acc);
+    fence_operands(pa);
+    if (!kStatic) {
 #pragma unroll
       for (int d = 0; d < kHd / 8; ++d) {
         acc[d][0] *= a0;
@@ -185,44 +286,22 @@ __global__ void __launch_bounds__(kThreads)
         acc[d][2] *= a1;
         acc[d][3] *= a1;
       }
-      shift0 = mx0;
-      shift1 = mx1;
     }
-#pragma unroll
-    for (int j = 0; j < kBk / 8; ++j) {
-      s[j][0] = __expf(s[j][0] - shift0);  // masked: exp(-inf) == 0
-      s[j][1] = __expf(s[j][1] - shift0);
-      s[j][2] = __expf(s[j][2] - shift1);
-      s[j][3] = __expf(s[j][3] - shift1);
-      l0 += s[j][0] + s[j][1];
-      l1 += s[j][2] + s[j][3];
-    }
-
-    // p (rounded to bf16) . v: the score C fragments of key tiles 2kk, 2kk+1
-    // are exactly the A fragment of a 16-key chunk
-#pragma unroll
-    for (int kk = 0; kk < kBk / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const __nv_bfloat16* vp = sv + (kk * 16 + t4 * 2) * kRow + g;
-#pragma unroll
-      for (int d = 0; d < kHd / 8; ++d) {
-        uint32_t bf[2];
-        bf[0] = pack_raw(vp[d * 8], vp[kRow + d * 8]);
-        bf[1] = pack_raw(vp[8 * kRow + d * 8], vp[9 * kRow + d * 8]);
-        mma_16816(acc[d], pa, bf);
-      }
-    }
+    pack_p(s, pa);
   }
+  wgmma_fence();
+  issue_pv(acc, pa, sw128_desc(sm.v[(n_tiles - 1) % kStages]));
+  wgmma_wait_n<0>();
+  fence_operands(acc);
+  fence_operands(pa);
+  cp_async_wait<0>();  // no copy outlives the block
+  if (q0 + wg * 64 >= S) return;  // a warpgroup with no real row stores nothing
 
   l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const int row0 = q0 + r0, row1 = row0 + 8;
+  const int row0 = q0 + wg * 64 + r0, row1 = row0 + 8;
 #pragma unroll
   for (int d = 0; d < kHd / 8; ++d) {
     const int c = d * 8 + t4 * 2;
@@ -346,9 +425,29 @@ extern "C" int owlvit_pk_fwd(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
+    // the bf16 kernel's shared memory is above the 48 KB default: raise its
+    // limit once per device, for both softmax modes
+    constexpr int kMaxDevices = 64;
+    static bool smem_set[kMaxDevices];
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+    if (!smem_set[dev]) {
+      decltype(&pk_fwd_bf16<true>) kerns[] = {pk_fwd_bf16<true>, pk_fwd_bf16<false>};
+      for (auto kern : kerns) {
+        err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   kSmemBytes);
+        if (err == cudaSuccess)  // room for two blocks per SM
+          err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                     static_cast<int>(cudaSharedmemCarveoutMaxShared));
+        if (err != cudaSuccess) return static_cast<int>(err);
+      }
+      smem_set[dev] = true;
+    }
     const dim3 grid((S + kBq - 1) / kBq, H, B);
     auto kern = use_static ? pk_fwd_bf16<true> : pk_fwd_bf16<false>;
-    kern<<<grid, kThreads, 0, st>>>(
+    kern<<<grid, kThreads, kSmemBytes, st>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
         static_cast<float*>(lse), S, H, valid_len, scale, static_max);

@@ -2,7 +2,8 @@
 
 Every ../csrc/*.cu is compiled by nvcc for sm_90a at first use into one
 shared library with a plain C interface under ../_build/ (named by a hash of
-the sources and flags, reused while they do not change) and bound with
+the sources, the headers they share and the flags, reused while none of them
+changes) and bound with
 ctypes, so importing this module needs neither nvcc nor a card. Each C entry
 point launches on the stream it is given, never synchronises, and returns
 cudaGetLastError(); `launch` raises if that is not 0.
@@ -58,20 +59,26 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def build(extra_flags: tuple = ()) -> Path:
-    """Compile csrc/*.cu with nvcc for sm_90a into one shared library under
-    _build/, named by a hash of the sources and flags; reuse it if present.
-    One nvcc per source, all started together, then one link. nvcc's
-    report (registers, shared memory, spills) goes beside it as .log.
-    extra_flags (e.g. a -D of a timing-only variant) make another library
-    beside the default one."""
-    srcs = sorted(CSRC.glob("*.cu"))
-    flags = (*NVCC_FLAGS, *extra_flags)
+def library_name(csrc: Path, flags: tuple) -> str:
+    """The file name of the library built from the sources in `csrc` with
+    `flags`: a hash of the flags and of every *.cu and *.cuh there, so that
+    editing a shared header builds anew."""
     h = hashlib.sha256(" ".join(flags).encode())
-    for src in srcs:
+    for src in sorted([*csrc.glob("*.cu"), *csrc.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    out = BUILD_DIR / f"libowlvit_kernels_{h.hexdigest()[:16]}.so"
+    return f"libowlvit_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build(extra_flags: tuple = ()) -> Path:
+    """Compile csrc/*.cu with nvcc for sm_90a into one shared library under
+    _build/, named by `library_name`; reuse it if present. One nvcc per
+    source, all started together, then one link. nvcc's report (registers,
+    shared memory, spills) goes beside it as .log. extra_flags (e.g. a -D of
+    a timing-only variant) make another library beside the default one."""
+    srcs = sorted(CSRC.glob("*.cu"))
+    flags = (*NVCC_FLAGS, *extra_flags)
+    out = BUILD_DIR / library_name(CSRC, flags)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -108,12 +108,15 @@ def cost_matrix(pred_sims, pred_boxes, gt_labels, gt_boxes, gt_mask, *,
 
     pred_sims [B, P, C] raw similarities; pred_boxes [B, P, 4] xyxy;
     gt_labels [B, G]; gt_boxes [B, G, 4] xyxy; gt_mask [B, G] bool. Rows of
-    invalid GT are zero. cost = -softmax(sims)[label] + L1 - GIoU."""
+    invalid GT are zero, whatever their label (a padded slot may hold -1 or
+    C). cost = -softmax(sims)[label] + L1 - GIoU."""
     x = pred_sims.float()
     lse = torch.logsumexp(x, dim=-1, keepdim=True)  # [B, P, 1]
     B, P, _ = x.shape
     G = gt_labels.shape[1]
-    idx = gt_labels.long()[:, None, :].expand(B, P, G)
+    # an invalid row gathers class 0 (an index in range); its cost is zeroed
+    labels = torch.where(gt_mask.bool(), gt_labels.long(), 0)
+    idx = labels[:, None, :].expand(B, P, G)
     c_class = -torch.exp(torch.gather(x, 2, idx) - lse).transpose(1, 2)  # [B, G, P]
     pb, gb = pred_boxes.float(), gt_boxes.float()
     c_bbox = (gb[:, :, None, :] - pb[:, None, :, :]).abs().sum(-1)

@@ -104,6 +104,29 @@ def test_match_equals_jax():
     np.testing.assert_array_equal(got_t.numpy(), np.asarray(want_t))
 
 
+@pytest.mark.parametrize("pad", [-1, 3, 0])
+def test_padded_labels_match_jax(pad):
+    """Padded GT slots are masked whatever label they carry (-1, C or 0): the
+    cost and the match equal the JAX ones. C=3, G=4, labels [0, 2, pad, pad]
+    with the last two slots masked."""
+    n_cls, g, p = 3, 4, 12
+    rng = np.random.default_rng(9)
+    sims = rng.uniform(-1, 1, size=(2, p, n_cls)).astype(np.float32)
+    pred, gt = _boxes(rng, 2, p), _boxes(rng, 2, g)
+    labels = np.array([[0, 2, pad, pad]] * 2, np.int32)
+    mask = np.array([[True, True, False, False]] * 2)
+    got = matcher.cost_matrix(*_t(sims, pred, labels, gt, mask)).numpy()
+    want = np.asarray(jax.vmap(jmatcher.cost_matrix)(sims, pred, labels, gt, mask))
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    np.testing.assert_array_equal(got[:, 2:], 0)
+    got_a, got_t = matcher.match(*_t(sims, pred, labels, gt, mask), n_cls)
+    want_a, want_t = jax.vmap(lambda *a: jmatcher.match(*a, n_cls))(sims, pred, labels, gt,
+                                                                     mask)
+    np.testing.assert_array_equal(got_a.numpy()[mask], np.asarray(want_a)[mask])
+    np.testing.assert_array_equal(got_a.numpy()[~mask], -1)
+    np.testing.assert_array_equal(got_t.numpy(), np.asarray(want_t))
+
+
 def _chain_case():
     """Patch 0 (class 2) overlaps 3, 3 overlaps 5 but 0 does not overlap 5:
     the label chains 0 -> 3 -> 5 within one sweep. Patch 7 (class 1)

@@ -5,10 +5,14 @@ import os
 import subprocess
 import sys
 
+import pytest
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _CODE = """
 import sys
+
+import pytest
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
 import numpy as np
 import torch
@@ -30,6 +34,8 @@ print("ok", len(res["scores"]))
 
 _TRAIN_CODE = """
 import sys
+
+import pytest
 sys.modules["jax"] = None
 import numpy as np
 import torch
@@ -56,6 +62,8 @@ print("ok", terms.tolist())
 
 _CACHED_TRAIN_CODE = """
 import sys
+
+import pytest
 sys.modules["jax"] = None
 import numpy as np
 import torch
@@ -110,3 +118,32 @@ def test_port_trains_cached_without_jax(tmp_path):
     """A cached train_step, device pool (activation dtype and int8) and disk
     store, a batch that fills its rows and one that reads them back."""
     _run(_CACHED_TRAIN_CODE, tmp_path)
+
+
+_SCRIPT_CODE = """
+import importlib.util
+import sys
+
+import pytest
+sys.modules["jax"] = None
+path = sys.argv[1]
+spec = importlib.util.spec_from_file_location("script_under_test", path)
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("owlvit_tpu", "jaxlib", "flax", "optax"))
+assert not leaked, leaked
+print("ok")
+"""
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py", "tools/torch_pk_fwd_profile.py",
+                                    "tools/torch_pk_bwd_profile.py",
+                                    "tools/torch_serve_profile.py"])
+def test_gpu_scripts_import_without_jax(tmp_path, script):
+    """The scripts that run on the card import nothing of JAX or of the JAX
+    package (their main() needs the card; importing them does not)."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _SCRIPT_CODE, os.path.join(REPO, script)],
+                         env=env, cwd=tmp_path, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
