@@ -8,7 +8,9 @@ Phases, each printing its numbers on a line of its own:
      backward, fused add+LayerNorm), one nvcc per source, started together;
      nvcc's registers, stack and spills per kernel, the bf16 attention
      forward's and backward's under keys of their own (the forward must not
-     spill).
+     spill; neither may carry a note that ptxas serialises its wgmma), and
+     the bf16 add+LN backward's per width with its dynamic shared memory
+     and blocks per SM (it must not spill).
   3. kernel: pk_fwd against its plain PyTorch version on the card at the
      B/32, B/16 and L/14 attention shapes (batch 4, valid_len < padded S),
      bf16 and fp32, fixed-shift (C=20) and per-row-max softmax.
@@ -20,7 +22,10 @@ Phases, each printing its numbers on a line of its own:
      (L/14) and [2305, 768], bf16 and fp32: r exact, the backward's sums the
      same from launch to launch; at the trained shape in bf16 the times
      beside the bound, the plain versions' and the yardstick x + h then
-     F.layer_norm (forward, backward alone, and forward + backward).
+     F.layer_norm (forward, backward alone, and forward + backward); at the
+     other three in bf16 the backward's time (CUDA events through the
+     wrapper, and the profiler's device time) beside its bound; then the
+     same checks at 999 rows for every other D the kernels take.
   6. kernel_transposed: the transposed Function flash_attention ([B, S, H,
      64], the packed kernels at one head per sequence) driven once forward
      and backward at [32, 2305, 12, 64] bf16 and [4, 2305, 12, 64] fp32 (the
@@ -201,6 +206,22 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, calls=5):
+    """Device time per call of fn, summed over the kernels it launches
+    (torch.profiler): at small shapes the wrapper's host work, which CUDA
+    events between calls include, can take longer than its kernels."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / calls / 1e3 if us else "not measured: the profiler saw no device events"
+
+
 def max_abs(a, b):
     return (a.float() - b.float()).abs().max().item()
 
@@ -304,8 +325,24 @@ def phase_build():
           f"ptxas report of the bf16 attention kernels: {fwd} {bwd}")
     check(all("0 bytes spill stores" in " ".join(lines) for lines in fwd.values()),
           f"the bf16 attention forward spills registers: {fwd}")
+    serialized = {name: lines for name, lines in {**fwd, **bwd}.items()
+                  if _cuda.wgmma_serialized(lines)}
+    check(not serialized, f"ptxas serialises the wgmma of bf16 attention kernels: {serialized}")
+    # the bf16 add+LN backward, one instantiation per width (D = 256 .. 1024):
+    # registers and spills, its dynamic shared memory and blocks per SM
+    ln_bwd = {name: lines for name, lines in report.items()
+              if "add_ln_bwd_kernel" in name and "bfloat16" in name}
+    check(len(ln_bwd) == 4, f"ptxas report of the bf16 add_ln backward: {ln_bwd}")
+    check(all("0 bytes spill stores" in " ".join(lines) for lines in ln_bwd.values()),
+          f"the bf16 add_ln backward spills registers: {ln_bwd}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ln_widths = {D: {"dynamic_smem_bytes": fused_ln.bwd_smem_bytes(D, torch.bfloat16, "cuda"),
+                     "blocks_per_sm": fused_ln._bwd_resident_blocks(
+                         0, fused_ln.DTYPE_CODE[torch.bfloat16], D) / sms}
+                 for D in (256, 512, 768, 1024)}
     emit("build", seconds=build_s, library=lib_path.name, ptxas=report,
-         ptxas_pk_fwd_bf16=fwd, ptxas_pk_bwd_bf16=bwd)
+         ptxas_pk_fwd_bf16=fwd, ptxas_pk_bwd_bf16=bwd, ptxas_add_ln_bwd_bf16=ln_bwd,
+         add_ln_bwd_bf16_by_width=ln_widths)
 
 
 def attention_shapes():
@@ -789,10 +826,26 @@ def phase_kernel_ln():
                 err.update({f"{d}_{k}": v for d in ("fwd", "bwd") for k, v in trained[d].items()
                             if k != "max_abs_err"})
                 del leaves, graph
+            elif key == "bf16":  # the backward's time at the other shapes
+                bwd_b = bound(14 * N * D, 4 * N * D * x.element_size() + 3 * D * 4,
+                              PEAK_F32_FLOPS)
+                err.update(bwd_ms=cuda_ms(lambda: fused_ln.add_ln_bwd(r, dy, dr, scale, LN_EPS), 20),
+                           bwd_device_ms=device_ms(
+                               lambda: fused_ln.add_ln_bwd(r, dy, dr, scale, LN_EPS)),
+                           bwd_bound_ms=bwd_b[0], bwd_bound_by=bwd_b[1])
             row[key] = err
             del x, h, scale, bias, dy, dr, r
             torch.cuda.empty_cache()
         emit("kernel_ln", case=name, **row)
+    # every other width the kernels take (one backward template each), 999
+    # rows (not a multiple of 8): the same checks
+    widths = {}
+    for dtype, key, Ds in ((torch.bfloat16, "bf16", (256, 512)),
+                           (torch.float32, "f32", (128, 256, 384, 512, 640, 896))):
+        for D in Ds:
+            err, _ = ln_errors(*ln_inputs(999, D, dtype, seed=D), key)
+            widths[f"{key}_{D}"] = {k: err[k] for k in ("y_max_rel", "g_max_rel")}
+    emit("kernel_ln", case="widths", shape=[999, "D"], **widths)
     return trained
 
 

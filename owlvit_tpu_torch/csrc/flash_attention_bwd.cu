@@ -56,6 +56,11 @@
 // fp32 bits. The key tiles of one (batch, head) start their walk at
 // different query tiles, so their reductions meet on different rows.
 // Warpgroups whose 64 keys all lie at or past valid_len skip their products.
+// ptxas serialises every wgmma of a kernel (a C75xx note in -Xptxas -v's
+// report) when a product sits under a branch it cannot prove uniform
+// (C7520), or when other instructions write a product's accumulators
+// between the fence and the commit (C7515); so the warpgroup index is
+// broadcast from lane 0, and the dq accumulators are zeroed before the fence.
 // delta comes from a first small kernel (8 threads a row, 16-byte loads).
 // Ragged tiles (S = 2305 = 18*128 + 1, valid_len < S) are masked in the
 // kernel, so nothing is padded. fp32 inputs take two FMA kernels, one by key
@@ -209,7 +214,10 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;  // mma group row, column pair
   const int r0 = warp * 16 + g;            // this thread's key rows: r0, r0 + 8
-  const int wg = warp >> 2;                // warpgroup: keys 64 wg .. 64 wg + 63
+  // warpgroup: keys 64 wg .. 64 wg + 63; broadcast from lane 0 so that the
+  // compiler sees it uniform over the warp (ptxas serialises every wgmma of
+  // a kernel whose control flow around them it cannot prove uniform)
+  const int wg = __shfl_sync(0xffffffffu, warp >> 2, 0);
 
   if (k0 >= valid_len) {  // every key of the tile is masked: dk = dv = 0
     for (int i = threadIdx.x; i < kBk * (kHd / 8); i += kThreads) {
@@ -303,6 +311,8 @@ __global__ void __launch_bounds__(kThreads, 2)
         for (int j = 0; j < kSubQ / 8; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+        fence_operands(s);  // the zeros are written before the fence
+        fence_operands(dp);
         const uint64_t kdesc = sw128_desc(sm.k + wg * 64 * kHd);
         const uint64_t vdesc = sw128_desc(sm.v + wg * 64 * kHd);
         const uint64_t qdesc = sw128_desc(tq + hq * kSubQ * kHd);
@@ -374,6 +384,15 @@ __global__ void __launch_bounds__(kThreads, 2)
     fence_proxy_async();  // q * scale and ds^T are read by wgmma
     __syncthreads();      // q * scale and ds^T are in
 
+    // the dq product's accumulators are zeroed before the fence, and held
+    // there by fence_operands (the compiler may otherwise move the zeros
+    // next to the product): ptxas serialises every wgmma of the kernel
+    // (C7515) when other instructions write a product's accumulators
+    // between the fence and the commit
+    float acc[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    fence_operands(acc);
     wgmma_fence();
     if (live) {  // dk += ds^T . (q*scale), q*scale read along its other axis
       const uint64_t dsdesc = sw128_desc(sm.ds + wg * 64 * kHd);
@@ -387,9 +406,6 @@ __global__ void __launch_bounds__(kThreads, 2)
     // and columns 32 wg .. 32 wg + 31 (warp w: queries 16 qg .. 16 qg + 15),
     // ds read from ds^T and k*scale from its 64-column rows at an offset of
     // 32 wg columns, both along their other axis
-    float acc[4][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
     {
       const uint64_t dsdesc = sw128_desc(sm.ds), kdesc = sw128_desc(sm.k + wg * 32);
       for (int c = 0; c < n_kc; ++c)

@@ -45,8 +45,10 @@ _SIGNATURES = {
     "owlvit_add_ln_fwd": [_P] * 6 + [_I] * 2 + [_F, _I, _P],
     # r dy dr scale g part_scale part_bias dscale dbias | N D blocks | eps dtype stream
     "owlvit_add_ln_bwd": [_P] * 9 + [_I] * 3 + [_F, _I, _P],
-    # dtype device -> the backward kernel's resident blocks (no launch, no stream)
-    "owlvit_add_ln_bwd_resident_blocks": [_I, _I],
+    # D dtype device -> the backward kernel's resident blocks (no launch, no stream)
+    "owlvit_add_ln_bwd_resident_blocks": [_I, _I, _I],
+    # D dtype -> the backward kernel's dynamic shared memory in bytes (no launch)
+    "owlvit_add_ln_bwd_smem_bytes": [_I, _I],
 }
 
 
@@ -110,17 +112,32 @@ def build(extra_flags: tuple = ()) -> Path:
 
 def ptxas_report(lib_path: Path) -> dict:
     """nvcc -Xptxas -v's report of the build at `lib_path`, per entry
-    function: {mangled name: [its stack and spills line, its registers
-    line]}."""
+    function: {mangled name: [its stack and spills line, its registers line,
+    and any note that its wgmma instructions are serialized]}. ptxas prints
+    such a note before it compiles the function, so the note goes to the
+    function it names (else to the entry function being compiled)."""
     out, current = {}, None
     for line in lib_path.with_suffix(".log").read_text().splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             current = m.group(1)
-            out[current] = []
+            out.setdefault(current, [])
+            continue
+        text = re.sub(r"^ptxas (info|warning)\s*:\s*", "", line.strip())
+        if wgmma_serialized([line]):
+            named = re.search(r"function '([^']+)'", line)
+            name = named.group(1) if named else current
+            if name:
+                out.setdefault(name, []).append(text)
         elif current and ("registers" in line or "spill" in line):
-            out[current].append(line.replace("ptxas info    :", "").strip())
+            out[current].append(text)
     return out
+
+
+def wgmma_serialized(lines) -> bool:
+    """Whether any of ptxas's `lines` says that wgmma instructions are
+    serialized (the products then wait for each other)."""
+    return any("wgmma" in line and "serialized" in line for line in lines)
 
 
 @functools.lru_cache(maxsize=None)
@@ -131,9 +148,12 @@ def library() -> ctypes.CDLL:
 
 def bind(path: Path) -> ctypes.CDLL:
     """Load the library at `path` and set every entry point's argument
-    types."""
+    types. An entry point the library lacks (a build of older sources) is
+    left unbound: calling it raises AttributeError."""
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
+        if not hasattr(lib, name):
+            continue
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

@@ -65,17 +65,32 @@ def add_ln_bwd_plain(r, dy, dr, scale, eps: float):
             dyf.reshape(-1, D).sum(0))
 
 
-def _rows(name: str, like: torch.Tensor, **tensors) -> tuple:
-    """What the kernels take: CUDA tensors of `like`'s [..., D] shape and
-    dtype (float32 or bfloat16), D a multiple of 256 (bf16) or 128 (fp32)
-    up to 1024, contiguous and 16-byte aligned. Returns (N, D)."""
-    D = like.shape[-1]
-    per_warp = 32 * 16 // like.element_size()
-    if like.dtype not in DTYPE_CODE:
-        raise ValueError(f"{name}: operands must be float32 or bfloat16, got {like.dtype}")
+def vectors_per_lane(name: str, D: int, dtype: torch.dtype) -> int:
+    """The 16-byte vectors that each of a warp's 32 lanes loads from a row
+    of D values: the backward kernel's template parameter (bf16 1-4, fp32
+    1-8). Raises unless the dtype is float32 or bfloat16 and D a multiple of
+    256 (bf16) or 128 (fp32) up to 1024."""
+    if dtype not in DTYPE_CODE:
+        raise ValueError(f"{name}: operands must be float32 or bfloat16, got {dtype}")
+    per_warp = 32 * 16 // dtype.itemsize
     if D % per_warp or not per_warp <= D <= _MAX_D:
         raise ValueError(f"{name}: the kernel takes D a multiple of {per_warp} "
-                         f"up to {_MAX_D} in {like.dtype}, got D={D}")
+                         f"up to {_MAX_D} in {dtype}, got D={D}")
+    return D // per_warp
+
+
+def bwd_blocks(N: int, resident: int) -> int:
+    """The backward's fixed grid: the blocks the card holds at once, but no
+    more than the ceil(N / 8) that have a row for each warp."""
+    return min(resident, -(-N // _ROWS_PER_BLOCK))
+
+
+def _rows(name: str, like: torch.Tensor, **tensors) -> tuple:
+    """What the kernels take: CUDA tensors of `like`'s [..., D] shape and
+    dtype (float32 or bfloat16), D as `vectors_per_lane` takes it,
+    contiguous and 16-byte aligned. Returns (N, D)."""
+    D = like.shape[-1]
+    vectors_per_lane(name, D, like.dtype)
     for key, t in tensors.items():
         if t.shape != like.shape or t.dtype != like.dtype or t.device != like.device:
             raise ValueError(f"{name}: {key} must be {like.dtype} {tuple(like.shape)} "
@@ -96,11 +111,19 @@ def _param(p: torch.Tensor, D: int, device) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_resident_blocks(device_index: int, dtype_code: int) -> int:
+def _bwd_resident_blocks(device_index: int, dtype_code: int, D: int) -> int:
     """The backward kernel's blocks that the card holds at once (SMs x
-    occupancy), asked once per device and dtype."""
+    occupancy; its template, and so its shared memory, depends on D),
+    asked once per device, dtype and D."""
     return query("owlvit_add_ln_bwd_resident_blocks", torch.device("cuda", device_index),
-                 dtype_code, device_index)
+                 D, dtype_code, device_index)
+
+
+def bwd_smem_bytes(D: int, dtype: torch.dtype, device) -> int:
+    """The backward kernel's dynamic shared memory at width D (its rows'
+    rings and their mbarriers), as the kernel's source sets it."""
+    vectors_per_lane("add_ln_bwd", D, dtype)
+    return query("owlvit_add_ln_bwd_smem_bytes", torch.device(device), D, DTYPE_CODE[dtype])
 
 
 def add_ln_fwd(x, h, scale, bias, eps: float):
@@ -138,8 +161,7 @@ def add_ln_bwd(r, dy, dr, scale, eps: float):
     sc = _param(scale, D, r.device)
     g = torch.empty_like(r)
     # a fixed grid, one fp32 partial row of dscale and dbias per block
-    blocks = min(_bwd_resident_blocks(r.device.index, DTYPE_CODE[r.dtype]),
-                 -(-N // _ROWS_PER_BLOCK))
+    blocks = bwd_blocks(N, _bwd_resident_blocks(r.device.index, DTYPE_CODE[r.dtype], D))
     part = torch.empty((2, blocks, D), dtype=torch.float32, device=r.device)
     dscale = torch.empty(D, dtype=torch.float32, device=r.device)
     dbias = torch.empty(D, dtype=torch.float32, device=r.device)

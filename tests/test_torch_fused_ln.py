@@ -35,7 +35,10 @@ from owlvit_tpu_torch.ops import fused_ln
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 DTYPES = pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-SHAPES = pytest.mark.parametrize("shape", [(1, 300, 128), (3, 41, 256)])  # N = 300, 123: not 256 multiples
+# N = 300, 123, 74, 61: not 256 multiples; D = 768 (B/32, B/16) and 1024 (L/14),
+# the models' own widths, on which the backward's kernel templates dispatch
+SHAPES = pytest.mark.parametrize("shape", [(1, 300, 128), (3, 41, 256), (2, 37, 768),
+                                           (1, 61, 1024)])
 EPS = 1e-5
 
 
@@ -148,6 +151,39 @@ def test_cpu_runs_plain_and_counts_no_launch():
     want = fused_ln.add_ln_bwd_plain(r, dy, x, scale, EPS)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert (fused_ln.add_ln_fwd.launches, fused_ln.add_ln_bwd.launches) == before == (0, 0)
+
+
+# every D the kernels take, per dtype: a multiple of 32 lanes x one 16-byte
+# load up to 1024
+ACCEPTED = [(torch.bfloat16, D) for D in (256, 512, 768, 1024)] + [
+    (torch.float32, D) for D in range(128, 1025, 128)]
+
+
+@pytest.mark.parametrize("dtype, D", ACCEPTED)
+def test_vectors_per_lane_covers_every_width(dtype, D):
+    """The backward's template (16-byte vectors per lane) for every D the
+    wrapper accepts: bf16 1-4, fp32 1-8, and the row exactly covered."""
+    nv = fused_ln.vectors_per_lane("add_ln_bwd", D, dtype)
+    assert 1 <= nv <= (4 if dtype == torch.bfloat16 else 8)
+    assert nv * 32 * 16 == D * dtype.itemsize
+
+
+@pytest.mark.parametrize("dtype, D", [(torch.bfloat16, 128), (torch.bfloat16, 384),
+                                      (torch.bfloat16, 1280), (torch.float32, 64),
+                                      (torch.float32, 200), (torch.float16, 768)])
+def test_vectors_per_lane_rejects_other_widths(dtype, D):
+    with pytest.raises(ValueError):
+        fused_ln.vectors_per_lane("add_ln_bwd", D, dtype)
+
+
+@pytest.mark.parametrize("N", [1, 7, 8, 9, 2305, 14404, 73760])
+@pytest.mark.parametrize("resident", [1, 132, 264])
+def test_bwd_grid(N, resident):
+    """The backward's fixed grid: at least one block, no more than the card
+    holds at once, and no block without a row for each of its 8 warps."""
+    blocks = fused_ln.bwd_blocks(N, resident)
+    assert 1 <= blocks <= min(resident, -(-N // 8))
+    assert blocks == resident or blocks * 8 >= N
 
 
 def test_other_devices_raise():

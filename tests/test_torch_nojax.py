@@ -138,6 +138,7 @@ print("ok")
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "tools/torch_pk_fwd_profile.py",
                                     "tools/torch_pk_bwd_profile.py",
+                                    "tools/torch_add_ln_profile.py",
                                     "tools/torch_serve_profile.py"])
 def test_gpu_scripts_import_without_jax(tmp_path, script):
     """The scripts that run on the card import nothing of JAX or of the JAX
