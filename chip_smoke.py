@@ -63,20 +63,42 @@ Phases, each printing its numbers on a line of its own:
      within 1e-4 in L2); then OWLVIT_FUSED_LN=1 with the int8 pool (22
      add_ln_fwd per filled batch, 2 add_ln_fwd and 2 add_ln_bwd per step;
      rows within rowmax/254; epoch-1 terms against the unfused run). Host wall, CUDA events per phase and peak memory of each.
+ 11. run: the fine-tune run as users start it, through Trainer.with_data
+     (the smoke's own in-memory data: 96 train and 32 test 768x768 images
+     of 1-4 filled rectangles on plain backgrounds, 4 classes, made with
+     numpy from the seed; a GPU host may have no image decoder):
+     B/16 bf16, random weights (seed 0), the query bank built on the card
+     by the text tower from the HashTokenizer ids of 3 prompts x 4 classes,
+     trainable_last_k 1, the device store, batch 32, lr 3e-6, weight decay
+     0.1. Run 1: 2 epochs, eval after each, checkpoints and the JSONL log
+     in a temporary directory; run 2 (n_epochs 3) resumes at step 6 and
+     trains one epoch; run 3 trains nothing and evaluates. Checks: JSONL
+     rows 2 then 3 (finite train terms, val_map in [-1, 1], 4 per-class
+     mAPs), class_maps.json, the resumed trainable parameters bit-equal to
+     the saved ones, the bank on the card with unit rows, the first eval
+     batch's packed detections bit-equal to a direct forward + NMS, and the
+     launches of each run (run 1: 12 pk_fwd per filled step and per eval
+     batch, 1 per gathered step, 1 pk_bwd per step). Epoch walls and img/s,
+     eval s/image, the bank's build time, peak memory, and whether Pillow,
+     png.h and jpeglib.h exist on the machine.
 The kernels JSON (second-to-last line) gives each kernel's launches summed
-over the paths driven (serving, the uncached and cached train runs, and for
+over the paths driven (serving, the uncached and cached train runs, the
+three fine-tune runs, and for
 the transposed entries alone the drives of phase 6; each counted from 0 just
 before it and read just after, each launch once, where the wrapper makes it),
 its error, time, plain time, bound and library time at its main-path shape;
-the last line is the device JSON. Any failure raises, so the exit code is
-non-zero.
+the line before it is nvidia-smi's name and power limit again, the last line
+the device JSON. Any failure raises, so the exit code is non-zero.
 """
 
 import contextlib
 import copy
+import gc
+import importlib.util
 import json
 import os
 import subprocess
+import tempfile
 import time
 
 # bitwise-reproducible cuBLAS across the server's thread and the main thread,
@@ -87,6 +109,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from owlvit_tpu_torch.data.dataset import DetectionDataset  # noqa: E402
 from owlvit_tpu_torch.models import get_config, owlvit, vit  # noqa: E402
 from owlvit_tpu_torch.ops import _cuda, fused_ln  # noqa: E402
 from owlvit_tpu_torch.ops import flash_attention as fa  # noqa: E402
@@ -296,15 +319,20 @@ def sdpa_ms(q, k, v, H, scale, do=None):
     return cuda_ms(fwd_bwd, 10)
 
 
+def nvidia_smi():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
+
+
 def phase_device():
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: this smoke runs only on the GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip()
+    smi = nvidia_smi()
     print(smi, flush=True)
     emit("device", name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), nvidia_smi=smi,
@@ -1140,6 +1168,194 @@ def phase_train_cached(n_rows=64, batch=32, max_gt=64, n_classes=80):
     return total
 
 
+RUN_COLORS = ((220, 40, 40), (40, 190, 60), (50, 80, 230), (230, 210, 40))
+RUN_LABELMAP = {0: "red box", 1: "green box", 2: "blue box", 3: "yellow box"}
+
+
+class SmokeSet(DetectionDataset):
+    """n images at S x S held in memory: a plain background and 1-4 filled
+    rectangles, each colour a class, made with numpy from the seed. The
+    interface of DetectionDataset (whose GT padding, class weights and
+    sample layout it inherits); no file is read or decoded."""
+
+    def __init__(self, n, S, max_gt, seed):  # not super().__init__: it reads files
+        rng = np.random.default_rng(seed)
+        self.image_size, self.max_gt, self.images_dir = S, max_gt, ""
+        self.images = np.empty((n, S, S, 3), np.uint8)
+        self.items = []
+        for i in range(n):
+            self.images[i] = rng.integers(0, 256, 3, dtype=np.uint8)
+            anns = []
+            for _ in range(int(rng.integers(1, 5))):
+                w, h = (int(v) for v in rng.integers(S // 10, S // 3, 2))
+                x0, y0 = int(rng.integers(0, S - w)), int(rng.integers(0, S - h))
+                label = int(rng.integers(0, len(RUN_COLORS)))
+                self.images[i, y0:y0 + h, x0:x0 + w] = RUN_COLORS[label]
+                anns.append({"bbox": [x0, y0, w, h], "label": label})
+            self.items.append((f"smoke_{i}", anns))
+
+    def load_batch(self, idxs, with_images: bool = True) -> list:
+        S = self.image_size
+        return [self._make_sample(int(i), self.images[int(i)] if with_images else None, S, S)
+                for i in idxs]
+
+
+def run_config(workdir, n_epochs, batch, max_gt):
+    return Config(DataConfig(max_gt=max_gt),
+                  TrainingConfig(n_epochs=n_epochs, learning_rate=3e-6, weight_decay=0.1,
+                                 batch_size=batch, eval_every_epochs=1,
+                                 checkpoint_dir=os.path.join(workdir, "ckpt"),
+                                 log_file="metrics.jsonl", cache_backbone=True,
+                                 cache_backbone_store="device", seed=0),
+                  ModelConfig(name="b16", dtype="bfloat16", trainable_last_k=1))
+
+
+def jsonl_rows(workdir):
+    with open(os.path.join(workdir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def check_rows(rows, n, n_classes):
+    check(len(rows) == n, f"{len(rows)} JSONL rows, expected {n}")
+    for row in rows:
+        terms = [row[f"train_{k}"] for k in ("loss_ce", "loss_bg", "loss_bbox", "loss_giou")]
+        check(np.isfinite(terms).all(), f"non-finite train terms {row}")
+        check(-1.0 <= row["val_map"] <= 1.0, f"val_map {row['val_map']}")
+
+
+def host_facts():
+    """Whether the machine has Pillow and the libpng and libjpeg headers
+    (information for the decode path; nothing branches on it)."""
+    dirs = ("/usr/include", "/usr/local/include")
+    return {"pillow": importlib.util.find_spec("PIL") is not None,
+            **{h: any(os.path.exists(os.path.join(d, h)) for d in dirs)
+               for h in ("png.h", "jpeglib.h")}}
+
+
+def timed_eval(trainer, record):
+    """Wrap trainer.evaluate (the run calls it through the instance) to time
+    each eval and keep its first batch's pixels and packed detections."""
+    evaluate, eval_batch = trainer.evaluate, trainer.eval_batch
+
+    def first_batch(image):
+        packed = eval_batch(image)
+        if "first_batch" not in record:
+            record["first_batch"] = (image.cpu(), packed)
+        return packed
+
+    def timed(*args, **kwargs):
+        record.pop("first_batch", None)  # keep the last eval's
+        t0 = time.perf_counter()
+        out = evaluate(*args, **kwargs)
+        record.setdefault("eval_s", []).append(time.perf_counter() - t0)
+        return out
+
+    trainer.eval_batch, trainer.evaluate = first_batch, timed
+
+
+def drive_run(trainer):
+    """trainer.run() with the launch counts from 0; -> (metrics, launches, s)."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    metrics = trainer.run()
+    torch.cuda.synchronize()
+    return metrics, read_counts(), time.perf_counter() - t0
+
+
+def phase_run(n_train=96, n_test=32, batch=32, max_gt=16):
+    """The fine-tune run through Trainer.with_data: 2 epochs, a resume to 3,
+    a resume that only evaluates. Returns the launches of the three runs."""
+    S = get_config("b16").vision.image_size
+    L = get_config("b16").vision.num_layers
+    n_classes = len(RUN_LABELMAP)
+    train_ds, test_ds = SmokeSet(n_train, S, max_gt, seed=0), SmokeSet(n_test, S, max_gt, seed=1)
+    steps, evals = n_train // batch, -(-n_test // batch)
+    total = dict.fromkeys(KERNELS, 0)
+    with tempfile.TemporaryDirectory() as workdir:
+        torch.cuda.reset_peak_memory_stats()
+        trainer = Trainer.with_data(run_config(workdir, 2, batch, max_gt), train_ds, test_ds,
+                                    RUN_LABELMAP, workdir, device="cuda")
+        bank = trainer.model.queries.detach()
+        norms = torch.linalg.vector_norm(bank.float(), dim=-1)
+        check(bank.is_cuda and bank.shape[0] == 3 * n_classes
+              and ((norms - 1).abs() <= 1e-3).all().item(),
+              f"query bank {bank.device} {tuple(bank.shape)} norms {norms.tolist()}")
+        record = {}
+        timed_eval(trainer, record)
+        metrics, launches, run1_s = drive_run(trainer)
+        check(launches == {**dict.fromkeys(KERNELS, 0), "pk_fwd": L * (steps + 2 * evals) + steps,
+                           "pk_bwd": 2 * steps},
+              f"run 1: {launches} launches ({steps} filled and {steps} gathered steps, "
+              f"{2 * evals} eval batches)")
+        total = {k: total[k] + launches[k] for k in KERNELS}
+        rows = jsonl_rows(workdir)
+        check_rows(rows, 2, n_classes)
+        check(len(metrics["map_per_class"]) == n_classes, f"map_per_class {metrics['map_per_class']}")
+        with open(os.path.join(workdir, "class_maps.json")) as f:
+            class_maps = json.load(f)
+        check(sorted(class_maps) == sorted(RUN_LABELMAP.values())
+              and all(len(v) == 2 for v in class_maps.values()), f"class_maps.json {class_maps}")
+        image, packed = record["first_batch"]
+        check(np.array_equal(image.numpy().reshape(test_ds.images[:batch].shape),
+                             test_ds.images[:batch]), "the eval batch's pixels")
+        with torch.no_grad():
+            px = normalize_image(torch.from_numpy(test_ds.images[:batch]).cuda())
+            boxes, sims = owlvit.forward_train(trainer.model, trainer.eval_cfg, px)
+            t_cfg = trainer.cfg.training
+            direct = nms_ops.pack_detections(nms_ops.postprocess(
+                boxes, sims, confidence_threshold=t_cfg.confidence_threshold,
+                iou_threshold=t_cfg.iou_threshold, top_k=t_cfg.top_k)).cpu().numpy()
+        check(np.array_equal(direct, packed),
+              "evaluate's packed detections differ from a direct forward + NMS")
+        saved = [p.detach().cpu() for p in trainer.params]
+        run1 = {"s": run1_s, "epochs": [{k: r[k] for k in ("epoch", "step", "epoch_train_secs",
+                                                          "epoch_imgs_per_sec")} for r in rows],
+                "eval_s": record["eval_s"], "eval_s_per_image": [s / n_test for s in record["eval_s"]],
+                "val_map": metrics["map"], "launches": launches,
+                "query_bank_s": trainer.query_bank_secs,
+                "detections_first_batch": int((packed[..., 6] > 0.5).sum())}
+        del trainer, bank, boxes, sims, px
+        gc.collect()
+
+        trainer = Trainer.with_data(run_config(workdir, 3, batch, max_gt), train_ds, test_ds,
+                                    RUN_LABELMAP, workdir, device="cuda")
+        check(trainer.step == 2 * steps, f"resumed at step {trainer.step}")
+        check(all(torch.equal(p.detach().cpu(), s) for p, s in zip(trainer.params, saved)),
+              "the resumed trainable parameters differ from the saved ones")
+        record = {}
+        timed_eval(trainer, record)
+        _, launches, run2_s = drive_run(trainer)
+        check(trainer.step == 3 * steps, f"run 2 ended at step {trainer.step}")
+        check(launches == {**dict.fromkeys(KERNELS, 0), "pk_fwd": L * (steps + evals),
+                           "pk_bwd": steps}, f"run 2: {launches} launches")
+        total = {k: total[k] + launches[k] for k in KERNELS}
+        rows = jsonl_rows(workdir)
+        check_rows(rows, 3, n_classes)
+        run2 = {"s": run2_s, "epochs": [{k: rows[-1][k] for k in (
+            "epoch", "step", "epoch_train_secs", "epoch_imgs_per_sec")}],
+            "eval_s_per_image": [s / n_test for s in record["eval_s"]], "launches": launches}
+        del trainer
+        gc.collect()
+
+        trainer = Trainer.with_data(run_config(workdir, 3, batch, max_gt), train_ds, test_ds,
+                                    RUN_LABELMAP, workdir, device="cuda")
+        metrics, launches, run3_s = drive_run(trainer)
+        check(trainer.step == 3 * steps and len(jsonl_rows(workdir)) == 3 and "map" in metrics,
+              f"run 3 trained: step {trainer.step}")
+        check(launches == {**dict.fromkeys(KERNELS, 0), "pk_fwd": L * evals},
+              f"run 3: {launches} launches")
+        total = {k: total[k] + launches[k] for k in KERNELS}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        del trainer
+        gc.collect()
+    torch.cuda.empty_cache()
+    emit("run", model="b16", dtype="bfloat16", batch=batch, images=[n_train, n_test],
+         run1=run1, run2=run2, run3={"s": run3_s, "launches": launches},
+         max_memory_allocated_gb=peak_gb, host=host_facts())
+    return total
+
+
 def main():
     for name in SWITCHES:  # the default paths run with the switches off
         os.environ.pop(name, None)
@@ -1166,7 +1382,9 @@ def main():
          sdpa_fwd_bwd_ms=bwd["library_ms"])
     train_launches = phase_train()
     cached_launches = phase_train_cached()
-    launches = {k: sum(run[k] for run in (serve_launches, train_launches, cached_launches))
+    run_launches = phase_run()
+    launches = {k: sum(run[k] for run in (serve_launches, train_launches, cached_launches,
+                                          run_launches))
                 for k in KERNELS}
     for k in ("transposed_fwd", "transposed_bwd"):  # the drives of the transposed Function
         launches[k] += transposed_launches[k]
@@ -1183,6 +1401,7 @@ def main():
         "transposed_fwd": {k: transposed["fwd"][k] for k in ("max_abs_err", *keys)},
         "transposed_bwd": {k: transposed["bwd"][k] for k in ("max_abs_err", *keys)},
     }
+    print(nvidia_smi(), flush=True)  # again beside the results, after the long phases
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **rows[name]}

@@ -1,2 +1,2 @@
 from .configs import OwlViTConfig, TextConfig, VisionConfig, get_config  # noqa: F401
-from . import owlvit  # noqa: F401
+from . import owlvit, text  # noqa: F401

@@ -9,9 +9,7 @@ encoder layers carry a leading [L] axis.
 
 `load_tree` maps such a tree onto a module by name: `kernel` -> `weight`
 (transposed to nn.Linear's [d_out, d_in]), `scale` -> `weight`, and a
-`layers` subtree with a leading [L] axis -> `layers.0`, `layers.1`, ... The
-text tower is not on the port's path yet: `from_jax_tree` skips it and says
-so in its return value.
+`layers` subtree with a leading [L] axis -> `layers.0`, `layers.1`, ...
 """
 
 from __future__ import annotations
@@ -84,10 +82,10 @@ def load_tree(module: torch.nn.Module, tree: dict) -> torch.nn.Module:
 def from_jax_tree(tree: dict, cfg: OwlViTConfig,
                   device: Optional[torch.device] = None):
     """JAX detector params (numpy) -> (owlvit.OwlViT on `device`, skipped
-    top-level keys). The text tower is skipped: it is not on this path."""
+    top-level keys). Every key is carried across, the text tower included,
+    so `skipped` is empty; a key the module lacks raises."""
     queries = tree.get("queries")
     model = owlvit.OwlViT(
         cfg, None if queries is None else np.shape(queries)[0])
-    skipped = ["text"] if "text" in tree else []
-    load_tree(model, {k: v for k, v in tree.items() if k not in skipped})
-    return model.to(device), skipped
+    load_tree(model, tree)
+    return model.to(device), []

@@ -93,10 +93,14 @@ class Attention(nn.Module):
         self.out = Linear(dim, dim, generator=generator)
 
     def forward(self, x: torch.Tensor, *, impl: str = "auto",
-                static_max: Optional[float] = None) -> torch.Tensor:
+                static_max: Optional[float] = None,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         """impl "xla": the plain version on any device, under PyTorch's own
         autograd; otherwise the kernels (CUDA kernels on CUDA tensors, plain
-        versions on CPU). A call that autograd records takes
+        versions on CPU). bias: an additive fp32 [B, 1|H, S, S] on the
+        scores (the text tower's causal and padding masks), which takes
+        `_biased_attention` whatever impl says, as the JAX package routes a
+        biased call to its XLA path. A call that autograd records takes
         `flash_attention_packed` when `packed_supported` (off under
         OWLVIT_PACKED_FLASH=0), else `flash_attention_hybrid` when
         `hybrid_supported`, else the transposed `flash_attention`; a call it
@@ -108,6 +112,8 @@ class Attention(nn.Module):
         H = self.num_heads
         scale = (D // H) ** -0.5
         q, k, v = self.q(x), self.k(x), self.v(x)
+        if bias is not None:
+            return self.out(_biased_attention(q, k, v, H, scale, bias))
         recorded = torch.is_grad_enabled() and q.requires_grad
         if recorded and static_max is not None:
             raise ValueError("static_max (the fixed-shift softmax) is for "
@@ -127,6 +133,18 @@ class Attention(nn.Module):
             o, _ = pk_fwd(q, k, v, scale=scale, num_heads=self.num_heads,
                           static_max=static_max)
         return self.out(o)
+
+
+def _biased_attention(q, k, v, num_heads: int, scale: float,
+                      bias: torch.Tensor) -> torch.Tensor:
+    """The JAX package's XLA attention with an additive bias: q scaled in
+    its dtype, fp32 scores plus bias, fp32 softmax cast back, then p.v."""
+    B, S, D = q.shape
+    hd = D // num_heads
+    qh, kh, vh = (t.reshape(B, S, num_heads, hd) for t in (q * scale, k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", qh.float(), kh.float()) + bias
+    w = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", w, vh).reshape(B, S, D)
 
 
 class MLP(nn.Module):
@@ -152,8 +170,10 @@ class EncoderBlock(nn.Module):
         self.mlp = MLP(dim, hidden, generator=generator)
 
     def forward(self, x: torch.Tensor, *, impl: str = "auto",
-                static_max: Optional[float] = None) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x), impl=impl, static_max=static_max)
+                static_max: Optional[float] = None,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = x + self.attn(self.ln1(x), impl=impl, static_max=static_max,
+                          bias=bias)
         return x + self.mlp(self.ln2(x))
 
 

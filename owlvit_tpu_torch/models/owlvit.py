@@ -1,12 +1,13 @@
 """OWL-ViT detector, query-bank path (counterpart of
 owlvit_tpu/models/owlvit.py: `init`, `image_embedder`, `_merge_feats`,
 `box_predictor`, `class_embeds`, `class_predictor_querybank`,
-`forward_train`, `embed_prefix`, `forward_train_from_prefix`).
+`forward_train`, `embed_prefix`, `forward_train_from_prefix`,
+`build_query_bank`).
 
 The parameters live in an `OwlViT` module whose attribute names follow the
 JAX parameter tree; the functions below keep the JAX package's signatures
-with that module in the place of the tree. The text tower, the zero-shot and
-one-shot heads are not ported yet.
+with that module in the place of the tree. The zero-shot and one-shot heads
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from torch import nn
 from owlvit_tpu_torch.ops import boxes as box_ops
 from owlvit_tpu_torch.ops.box_bias import compute_box_bias
 
+from . import text as text_model
 from . import vit
 from .configs import OwlViTConfig
 from .layers import LayerNorm, Linear, gelu, normal
@@ -68,6 +70,9 @@ class OwlViT(nn.Module):
             else nn.Parameter(normal((num_queries, cfg.projection_dim), 0.02,
                                      generator))
         )
+        # drawn last, so that the draws of every other parameter are those
+        # of a detector without it
+        self.text = text_model.init(cfg.text, cfg.projection_dim, generator)
 
 
 def init(cfg: OwlViTConfig, generator: torch.Generator,
@@ -76,6 +81,15 @@ def init(cfg: OwlViTConfig, generator: torch.Generator,
     """Random-init detector on `device` (drawn on the CPU from `generator`).
     num_queries adds a query bank [num_queries, projection_dim]."""
     return OwlViT(cfg, num_queries, generator=generator).to(device)
+
+
+def build_query_bank(params: OwlViT, cfg: OwlViTConfig, input_ids,
+                     attention_mask=None) -> torch.Tensor:
+    """Class-prompt token ids [Q, S] -> the L2-normalised projected text
+    embeddings [Q, projection_dim], fp32: the query bank (the reference
+    builds it once at model load, models.py:162-171)."""
+    t = text_model.forward(params.text, cfg.text, input_ids, attention_mask)
+    return t / torch.linalg.vector_norm(t, dim=-1, keepdim=True)
 
 
 def image_embedder(params: OwlViT, cfg: OwlViTConfig, pixel_values):

@@ -1,7 +1,23 @@
-"""The fine-tune train step (counterpart of owlvit_tpu/train/trainer.py:
-`Trainer.train_step`, `grad_update`, `_lr_schedule`, and the cached routing
-of `_setup_act_cache`, `_init_pool`, `_act_pool_bytes` and
-`_train_one_batch_impl` for one device).
+"""The fine-tune run (counterpart of owlvit_tpu/train/trainer.py: `setup`
+and `_build_query_bank` as `from_config`/`with_data`, `run` on the streamed
+path, `evaluate`, `Trainer.train_step`, `grad_update`, `_lr_schedule`, and
+the cached routing of `_setup_act_cache`, `_init_pool`, `_act_pool_bytes`,
+`_train_one_batch_impl`, `_want_image` and `_with_cached_acts` for one
+device).
+
+A run, as `python -m owlvit_tpu_torch.cli train` starts it:
+`Trainer.from_config` writes the synthetic set when data.synthetic_root is
+set, loads the labelmap and both DetectionDatasets, then `with_data` (which
+takes ready dataset objects) loads model.params_npz or draws the detector
+from training.seed, builds the query bank from the text tower when the
+parameters lack one, sets the class weights and the optimizer, restores the
+latest checkpoint and prints the mode banner. `run` trains to n_epochs
+(resuming where a checkpoint left off), each epoch one shuffled pass
+through `batch_iterator` and `prefetch_to_device` into `train_step`, with
+eval, the JSONL row, class_maps.json, TensorBoard scalars, periodic and best
+checkpoints and early stop. `evaluate` is the eval forward (no split, no
+grad) + `postprocess` + `pack_detections`, one device read per batch, and
+COCO mAP on the host.
 
 One step, uncached: uint8 pixels -> `normalize_image` -> `forward_train`
 (the frozen prefix of layers under no_grad, the trainable tail with the
@@ -22,28 +38,41 @@ the exact prefix output; a filled batch gathers its rows from the store.
 
 Not in this slice, and refused with NotImplementedError when a config asks
 for them: grad_accum > 1, EMA, augmentation (hflip's two-row pool
-included), a mesh, checkpoints and remat. The data feed, eval and the epoch
-loop are not ported either: the caller hands `train_step` its batches.
+included), a mesh, remat, the device-resident pixel pre-stage
+(training.stage_pixels "on"; "auto" resolves to off on a GPU, as it does
+off-TPU in the JAX package) and training.profile_dir (jax.profiler traces).
+Everything runs on the card unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
 
+import json
 import math
 import os
+import time
 from typing import Callable, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
+from owlvit_tpu_torch.data import DetectionDataset, batch_iterator, prefetch_to_device
 from owlvit_tpu_torch.data.act_cache import ActivationCache, fingerprint
+from owlvit_tpu_torch.data.coco import load_labelmap
+from owlvit_tpu_torch.data.tokenizer import CLIPTokenizer, HashTokenizer, build_prompts
 from owlvit_tpu_torch.models import get_config, owlvit
-from owlvit_tpu_torch.models.layers import fused_ln_enabled
+from owlvit_tpu_torch.models.convert import from_jax_tree, load_params
+from owlvit_tpu_torch.models.layers import fused_ln_enabled, normal
 from owlvit_tpu_torch.ops import losses as loss_ops
+from owlvit_tpu_torch.ops import nms as nms_ops
 from owlvit_tpu_torch.ops.flash_attention import resolve_static_max
+from owlvit_tpu_torch.ops.map_metric import MeanAveragePrecision
 from owlvit_tpu_torch.ops.preprocess import normalize_image
 from owlvit_tpu_torch.ops.quant import dequantize_rows, quantize_rows
 from owlvit_tpu_torch.utils.config import Config, ModelConfig, TrainingConfig
+from owlvit_tpu_torch.utils.logging import JSONLLogger, LossAccumulator, ProgressFormatter
 
+from . import checkpoint as ckpt
 from .state import partition_params
 
 # the four loss terms, in the order train_step returns them
@@ -55,6 +84,9 @@ TERM_KEYS = ("loss_ce", "loss_bg", "loss_bbox", "loss_giou")
 # for the H100's 80 GB yet.
 AUTO_DEVICE_POOL_BYTES = 10e9
 
+# training.stage_pixels, as the JAX package reads it
+_STAGE_OFF, _STAGE_ON = ("off", "false", "0", "none", ""), ("on", "true", "1")
+
 _NOT_PORTED = (
     ("training.grad_accum > 1", lambda t, m: t.grad_accum > 1),
     ("training.ema_decay", lambda t, m: bool(t.ema_decay)),
@@ -62,9 +94,22 @@ _NOT_PORTED = (
     ("training.augment_hflip", lambda t, m: t.augment_hflip),
     ("a mesh (training.mesh_data x training.mesh_model > 1)",
      lambda t, m: t.mesh_data * t.mesh_model > 1),
-    ("checkpoints (training.checkpoint_dir)", lambda t, m: bool(t.checkpoint_dir)),
     ("model.remat", lambda t, m: m.remat),
+    ("training.stage_pixels: on (the device-resident pixel pre-stage)",
+     lambda t, m: _stage_pixels(t) in _STAGE_ON),
+    ("training.profile_dir (jax.profiler traces)", lambda t, m: bool(t.profile_dir)),
 )
+
+# image metadata the data feed adds: read on the host only, never by the step
+_META_KEYS = ("image_valid", "width", "height")
+
+
+def _stage_pixels(t: TrainingConfig) -> str:
+    v = str(t.stage_pixels).strip().lower()
+    if v != "auto" and v not in _STAGE_OFF + _STAGE_ON:
+        raise ValueError(
+            f"training.stage_pixels must be auto|on|off, got {t.stage_pixels!r}")
+    return v
 
 
 def _refuse_unported(t: TrainingConfig, m: ModelConfig) -> None:
@@ -73,6 +118,54 @@ def _refuse_unported(t: TrainingConfig, m: ModelConfig) -> None:
     for what, asked in _NOT_PORTED:
         if asked(t, m):
             raise NotImplementedError(f"{what} is not ported to owlvit_tpu_torch yet")
+
+
+def _device(device) -> torch.device:
+    """The run's device: the card unless the caller asks for the CPU; a
+    CUDA device where there is none raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("Trainer: no CUDA device; pass device='cpu' to run "
+                           "on the CPU")
+    return device
+
+
+def _tokenizer(m: ModelConfig, max_len: int, vocab_size: int):
+    """The CLIP BPE from model.clip_vocab/clip_merges, or the HashTokenizer
+    fallback, with the JAX package's refusals (`_build_query_bank`)."""
+    if bool(m.clip_vocab) != bool(m.clip_merges):
+        raise ValueError(
+            "model.clip_vocab and model.clip_merges must be set together "
+            f"(got clip_vocab={m.clip_vocab!r}, clip_merges={m.clip_merges!r})"
+        )
+    if m.clip_vocab:
+        return CLIPTokenizer(m.clip_vocab, m.clip_merges, max_len=max_len)
+    if m.params_npz:
+        # a real converted checkpoint with a fake tokenizer would silently
+        # produce a meaningless query bank
+        raise ValueError(
+            "model.params_npz is set (real checkpoint) but "
+            "model.clip_vocab/clip_merges are not: the fallback "
+            "HashTokenizer would build a meaningless query bank. "
+            "Provide the real CLIP BPE assets (see "
+            "scripts/fetch_assets.py) or unset params_npz."
+        )
+    return HashTokenizer(vocab_size, max_len=max_len)
+
+
+def _dataset_id(train_ds) -> list:
+    """The train images' identity for the disk store's fingerprint: each
+    key with its file's size and mtime, so that a rewritten or regenerated
+    image invalidates the stored rows."""
+    ids = []
+    for key, _ in train_ds.items:
+        path = os.path.join(train_ds.images_dir, os.path.basename(key))
+        try:
+            st = os.stat(path)
+            ids.append((key, st.st_size, int(st.st_mtime)))
+        except OSError:
+            ids.append((key, -1, -1))
+    return ids
 
 
 def lr_schedule(t: TrainingConfig, steps_per_epoch: int) -> Callable[[int], float]:
@@ -109,8 +202,9 @@ def _tensor(x, device, dtype) -> torch.Tensor:
 
 
 class Trainer:
-    """Fine-tunes `model` (an owlvit.OwlViT with a query bank) on batches
-    the caller gives `train_step`.
+    """Fine-tunes `model` (an owlvit.OwlViT with a query bank): one step at
+    a time on batches the caller gives `train_step`, or whole runs (`run`,
+    `evaluate`) when built by `from_config` or `with_data`.
 
     config: the port's Config (utils/config.py); model.name, dtype,
     attention_impl and trainable_last_k pick the model configuration,
@@ -124,10 +218,13 @@ class Trainer:
     (the store's rows, indexed by batch["indices"]); workdir, where the
     disk store lives; dataset_id, a JSON-able identity of the train set
     (image keys with their sizes and times, say) that enters the disk
-    store's fingerprint, so that a changed set never reads stale rows."""
+    store's fingerprint, so that a changed set never reads stale rows.
+
+    device: the card unless the caller asks for "cpu"; raises where there
+    is no card."""
 
     def __init__(self, config: Config, model: owlvit.OwlViT, n_classes: int, *,
-                 steps_per_epoch: int, class_weights=None, device,
+                 steps_per_epoch: int, class_weights=None, device="cuda",
                  n_images: Optional[int] = None, workdir: Optional[str] = None,
                  dataset_id=None):
         t, m = config.training, config.model
@@ -135,11 +232,17 @@ class Trainer:
         if model.queries is None:
             raise ValueError("the model has no query bank to fine-tune")
         self.cfg = config
-        self.device = torch.device(device)
+        self.device = _device(device)
+        self.workdir = "." if workdir is None else workdir
+        # set by with_data: what run() and evaluate() read
+        self.train_ds = self.test_ds = self.labelmap = None
+        self.query_bank_secs = None  # the text tower's time, when it ran
         # static_softmax stays False: the tail takes a gradient
         self.model_cfg = get_config(m.name, dtype=m.dtype,
                                     attention_impl=m.attention_impl,
                                     trainable_last_k=m.trainable_last_k)
+        # eval: every layer in one forward, no gradient (JAX: eval_step)
+        self.eval_cfg = self.model_cfg.replace(trainable_last_k=None)
         self.model = model.to(self.device)
         self.n_classes = n_classes
         self.params = partition_params(self.model, m.trainable_last_k)
@@ -160,6 +263,118 @@ class Trainer:
                     "training.cache_backbone requires model.trainable_last_k "
                     "(full fine-tuning has no frozen prefix to cache)")
             self._setup_act_cache(n_images, workdir, dataset_id)
+
+    # ----------------------------------------------------------------- setup
+
+    @classmethod
+    def from_config(cls, config: Config, workdir: str = ".", *,
+                    device="cuda") -> "Trainer":
+        """The JAX package's `Trainer(config, workdir)`: writes the
+        synthetic set when data.synthetic_root is set (pointing data.* at
+        it), loads the labelmap and the train and test DetectionDatasets,
+        then `with_data` does the rest."""
+        t, d = config.training, config.data
+        _refuse_unported(t, config.model)
+        _device(device)
+        if d.synthetic_root:
+            from owlvit_tpu_torch.data import synthetic  # PIL: only here
+
+            paths = synthetic.generate(
+                d.synthetic_root, n_train=d.num_train_images,
+                n_test=d.num_test_images, n_classes=d.synthetic_classes,
+                seed=t.seed)
+            d.images_path = paths["images_dir"]
+            d.train_annotations = paths["train"]
+            d.test_annotations = paths["test"]
+            d.labelmap = paths["labelmap"]
+        size = get_config(config.model.name).vision.image_size
+        train_ds, test_ds = (
+            DetectionDataset(ann, d.images_path, image_size=size, max_gt=d.max_gt,
+                             cache_resized=d.cache_resized,
+                             native_decode=d.native_decode)
+            for ann in (d.train_annotations, d.test_annotations))
+        return cls.with_data(config, train_ds, test_ds, load_labelmap(d.labelmap),
+                             workdir, device=device)
+
+    @classmethod
+    def with_data(cls, config: Config, train_ds, test_ds, labelmap: dict,
+                  workdir: str = ".", *, device="cuda") -> "Trainer":
+        """A trainer over ready datasets (DetectionDataset's interface:
+        __len__, load_batch, class_scales; `items` and `images_dir` for the
+        disk store's fingerprint) and labelmap {id: name}: the parameters
+        (model.params_npz, else drawn from training.seed), the query bank
+        when they lack one (the text tower over 3 prompts per class; a
+        random bank when a checkpoint will overwrite it), the class weights
+        (use_class_weight), the optimizer, the latest checkpoint and the
+        mode banner."""
+        t, m = config.training, config.model
+        _refuse_unported(t, m)
+        device = _device(device)
+        os.makedirs(workdir, exist_ok=True)
+        n_classes = len(labelmap)
+        mcfg = get_config(m.name, dtype=m.dtype, attention_impl=m.attention_impl,
+                          trainable_last_k=m.trainable_last_k)
+        if m.params_npz:
+            model, _ = from_jax_tree(load_params(m.params_npz), mcfg)
+        else:
+            model = owlvit.init(mcfg, torch.Generator().manual_seed(t.seed))
+        model = model.to(device)
+        bank_secs = None
+        if model.queries is None:
+            if t.checkpoint_dir and ckpt.latest_step(t.checkpoint_dir) is not None:
+                # the checkpoint overwrites the bank: skip the text tower
+                bank = normal((3 * n_classes, mcfg.projection_dim), 0.02,
+                              torch.Generator().manual_seed(t.seed))
+            else:
+                tok = _tokenizer(m, mcfg.text.max_len, mcfg.text.vocab_size)
+                enc = tok(build_prompts(labelmap))
+                t0 = time.perf_counter()
+                with torch.no_grad():
+                    bank = owlvit.build_query_bank(
+                        model, mcfg, torch.from_numpy(enc["input_ids"]).to(device),
+                        torch.from_numpy(enc["attention_mask"]).to(device))
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                bank_secs = time.perf_counter() - t0
+            model.queries = nn.Parameter(bank.to(device))
+        cached = t.cache_backbone
+        trainer = cls(
+            config, model, n_classes,
+            steps_per_epoch=max(1, len(train_ds) // t.batch_size),
+            class_weights=(train_ds.class_scales(n_classes)
+                           if t.use_class_weight else None),
+            device=device, n_images=len(train_ds) if cached else None,
+            workdir=workdir,
+            dataset_id=(_dataset_id(train_ds)
+                        if cached and t.cache_backbone_store != "device" else None))
+        trainer.train_ds, trainer.test_ds, trainer.labelmap = train_ds, test_ds, labelmap
+        trainer.query_bank_secs = bank_secs
+        if t.checkpoint_dir:
+            state = ckpt.restore(t.checkpoint_dir)
+            if state is not None:
+                trainer.load_state(state)
+                print(f"resumed from step {trainer.step}", flush=True)
+        cache_desc = (
+            f"act-cache ON (store={trainer.act_store}"
+            + (f", {t.cache_store_dtype}" if t.cache_store_dtype else "") + ")"
+            if cached else "act-cache off")
+        print(f"trainer: model={m.name} dtype={m.dtype} "
+              f"trainable_last_k={m.trainable_last_k} | {device} | {cache_desc} | "
+              f"batch={t.batch_size}", flush=True)
+        return trainer
+
+    def state(self) -> dict:
+        """What a checkpoint holds: every parameter (model), the AdamW state
+        and the updates done."""
+        return {"model": self.model.state_dict(),
+                "optimizer": self.opt.state_dict(), "step": self.step}
+
+    def load_state(self, state: dict) -> None:
+        """Copy a checkpoint's state in (parameters in place, so the
+        optimizer keeps its references)."""
+        self.model.load_state_dict(state["model"])
+        self.opt.load_state_dict(state["optimizer"])
+        self.step = int(state["step"])
 
     # ------------------------------------------------------ activation cache
 
@@ -266,6 +481,11 @@ class Trainer:
         stored and returned when any of its rows is not stored yet."""
         idxs = np.asarray(batch["indices"], np.int64)
         disk = self.act_store == "disk"
+        if "acts" in batch:  # stored rows the data feed read (_with_cached_acts)
+            acts = batch["acts"].to(self.device)
+            mark("input")
+            mark("gather")
+            return acts
         hit = self.act_cache.has(idxs) if disk else bool(self.filled[idxs].all())
         if hit:
             if disk:
@@ -338,3 +558,245 @@ class Trainer:
         mark("optimizer")
         self.step += 1
         return torch.stack([terms[k].detach() for k in TERM_KEYS]).cpu().numpy()
+
+    # ------------------------------------------------------------ data feed
+
+    def _want_image(self):
+        """batch_iterator callback: skip the decode of a batch whose rows
+        are all stored (its pixels would go unread), None uncached."""
+        if self.act_store is None:
+            return None
+        if self.act_store == "device":
+            return lambda idxs: not self.filled[np.asarray(idxs)].all()
+        return lambda idxs: not self.act_cache.has(idxs)
+
+    def _with_cached_acts(self, it):
+        """Disk store: attach the stored rows on the host side (in the
+        data feed's thread), dropping the pixels."""
+        for batch in it:
+            if self.act_cache.has(batch["indices"]):
+                batch["acts"] = self.act_cache.read_tensor(batch["indices"])
+                batch.pop("image", None)
+            yield batch
+
+    def _need_data(self) -> None:
+        if self.train_ds is None:
+            raise ValueError("run() and evaluate() need the datasets: build the "
+                             "trainer with Trainer.from_config or Trainer.with_data")
+
+    # ------------------------------------------------------------------ run
+
+    def run(self) -> dict:
+        """Train to training.n_epochs in all, resuming after the epochs a
+        restored checkpoint holds; eval every eval_every_epochs and at the
+        last epoch. Returns the last eval's metrics."""
+        self._need_data()
+        t = self.cfg.training
+        logger = (JSONLLogger(os.path.join(self.workdir, t.log_file))
+                  if t.log_file else None)
+        acc = LossAccumulator()
+        progress = ProgressFormatter()
+        class_maps = {name: [] for name in self.labelmap.values()}
+        last_val = {}
+        tb = None
+        if t.tensorboard_dir:
+            from owlvit_tpu_torch.utils.tb_writer import TBWriter
+
+            tb = TBWriter(os.path.join(self.workdir, t.tensorboard_dir))
+        if t.keep_best and not t.checkpoint_dir:
+            raise ValueError("training.keep_best requires training.checkpoint_dir")
+        best_map = -1.0
+        evals_since_best = 0
+
+        if len(self.train_ds) < t.batch_size:
+            raise ValueError(
+                f"training.batch_size={t.batch_size} exceeds the train set "
+                f"({len(self.train_ds)} images) — every epoch would drop the "
+                f"ragged remainder and train on nothing"
+            )
+
+        # a restored checkpoint at step k*spe means k epochs are done:
+        # continue to n_epochs in all
+        spe = max(1, len(self.train_ds) // t.batch_size)
+        start_epoch = min(self.step // spe, t.n_epochs)
+        if start_epoch:
+            print(
+                f"resume: {start_epoch}/{t.n_epochs} epoch(s) already "
+                f"complete at step {self.step} — "
+                + ("nothing left to train; running eval"
+                   if start_epoch >= t.n_epochs else
+                   f"continuing from epoch {start_epoch}"),
+                flush=True,
+            )
+        if start_epoch >= t.n_epochs:
+            last_val = self.evaluate(epoch=t.n_epochs - 1)
+
+        for epoch in range(start_epoch, t.n_epochs):
+            acc.reset()
+            ep_t0 = time.perf_counter()
+            it = batch_iterator(self.train_ds, t.batch_size, shuffle=True,
+                                seed=t.seed + epoch, pad_final=False,
+                                want_image=self._want_image())
+            if self.act_cache is not None:  # disk store: rows read host-side
+                it = self._with_cached_acts(it)
+            for batch in prefetch_to_device(it, device=self.device,
+                                            host_keys=_META_KEYS):
+                for k in ("paths",) + _META_KEYS:
+                    batch.pop(k, None)
+                terms = self.train_step(batch)  # ends in a device read
+                acc.update(dict(zip(TERM_KEYS, terms.tolist())))
+
+            # the epoch's training wall, before eval
+            epoch_train_secs = time.perf_counter() - ep_t0
+            epoch_imgs = (len(self.train_ds) // t.batch_size) * t.batch_size
+
+            train_metrics = acc.means()
+            run_eval = ((epoch + 1) % max(1, t.eval_every_epochs) == 0
+                        or epoch == t.n_epochs - 1)
+            val_metrics = self.evaluate(epoch=epoch) if run_eval else {}
+            if run_eval:
+                last_val = val_metrics
+                for i, name in sorted(self.labelmap.items()):
+                    class_maps[name].append(float(val_metrics["map_per_class"][i]))
+                with open(os.path.join(self.workdir, "class_maps.json"), "w") as f:
+                    json.dump(class_maps, f)
+
+            improved = False
+            if run_eval:
+                m = float(val_metrics.get("map", 0.0))
+                if m > best_map:
+                    best_map, evals_since_best, improved = m, 0, True
+                else:
+                    evals_since_best += 1
+
+            progress.update(epoch, train_metrics, val_metrics)
+            progress.print()
+            if logger:
+                logger.log(
+                    dict(epoch=epoch, step=self.step,
+                         # not train_-prefixed: tests compare the train_*
+                         # keys across runs, and wall-clock fields must
+                         # stay out of that set
+                         epoch_train_secs=round(epoch_train_secs, 4),
+                         epoch_imgs_per_sec=round(
+                             epoch_imgs / max(epoch_train_secs, 1e-9), 2),
+                         **{f"train_{k}": v for k, v in train_metrics.items()},
+                         **{f"val_{k}": v for k, v in val_metrics.items()
+                            if not k.endswith("per_class")})
+                )
+            if tb:
+                tb.scalars(train_metrics, epoch, prefix="train/")
+                if run_eval:
+                    tb.scalars(val_metrics, epoch, prefix="val/")
+                tb.flush()
+            if (t.checkpoint_dir and t.checkpoint_every_epochs > 0  # 0: off
+                    and (epoch + 1) % t.checkpoint_every_epochs == 0):
+                path = ckpt.save(t.checkpoint_dir, self.state())
+                print(f"checkpoint: {path}", flush=True)
+            if improved and t.keep_best:
+                bdir = os.path.join(t.checkpoint_dir, "best")
+                path = ckpt.save(bdir, self.state())
+                ckpt.prune_steps(bdir, self.step)
+                print(f"best checkpoint (map={best_map:.4f}): {path}", flush=True)
+            if t.early_stop_patience and evals_since_best >= t.early_stop_patience:
+                print(
+                    f"early stop at epoch {epoch}: no mAP improvement in "
+                    f"{evals_since_best} eval(s) (best {best_map:.4f})",
+                    flush=True,
+                )
+                break
+
+        if tb:
+            tb.close()
+        if logger:
+            logger.close()
+        return last_val
+
+    # ----------------------------------------------------------------- eval
+
+    def eval_batch(self, image) -> np.ndarray:
+        """uint8 [B, S*S*3] or [B, S, S, 3] -> packed detections [B, K, 7]
+        (xyxy in [0, 1], score, class, valid), in one device read: the eval
+        forward (every layer, no gradient, per-row softmax max) +
+        postprocess + pack_detections."""
+        t = self.cfg.training
+        with torch.no_grad():
+            px = normalize_image(self._image({"image": image}))
+            boxes, sims = owlvit.forward_train(self.model, self.eval_cfg, px)
+            out = nms_ops.postprocess(
+                boxes, sims, confidence_threshold=t.confidence_threshold,
+                iou_threshold=t.iou_threshold, top_k=t.top_k)
+            return nms_ops.pack_detections(out).cpu().numpy()
+
+    def evaluate(self, epoch: Optional[int] = None,
+                 save_detections: Optional[str] = None) -> dict:
+        """Eval epoch over the test set -> the COCO mAP dict.
+
+        save_detections: a path; writes every kept detection in
+        COCO-results style ({image_id, image_path, category_id,
+        category_name, bbox [x, y, w, h] in pixels, score}); category_id
+        is the dense 0..C-1 training id. With training.save_eval_images and
+        an epoch, each test image is drawn with its detections under
+        <workdir>/debug/<epoch>/ (PIL, on the host)."""
+        self._need_data()
+        t = self.cfg.training
+        metric = MeanAveragePrecision(self.n_classes)
+        debug_dir = None
+        if t.save_eval_images and epoch is not None:
+            debug_dir = os.path.join(self.workdir, "debug", str(epoch))
+            os.makedirs(debug_dir, exist_ok=True)
+        detections = [] if save_detections else None
+        img_idx = 0
+        it = batch_iterator(self.test_ds, t.batch_size, shuffle=False)
+        # ground truth and image metadata are read on the host only
+        batches = prefetch_to_device(
+            it, device=self.device,
+            host_keys=_META_KEYS + ("boxes", "labels", "gt_mask"))
+        for bi, batch in enumerate(batches):
+            paths = batch.pop("paths", None)
+            packed = self.eval_batch(batch["image"])
+            widths, heights = batch["width"], batch["height"]
+            gt_boxes, gt_labels, gt_mask = batch["boxes"], batch["labels"], batch["gt_mask"]
+            for i, valid in enumerate(batch["image_valid"]):
+                if not valid:
+                    continue
+                w, h = float(widths[i]), float(heights[i])
+                keep = packed[i, :, 6] > 0.5
+                det_boxes = packed[i, keep, :4]
+                det_scores = packed[i, keep, 4]
+                det_classes = packed[i, keep, 5].astype(np.int32)
+                scale = np.array([w, h, w, h])
+                metric.update(det_boxes * scale, det_scores, det_classes,
+                              gt_boxes[i][gt_mask[i]] * scale,
+                              gt_labels[i][gt_mask[i]])
+                if detections is not None:
+                    for b, s, c in zip(det_boxes * scale, det_scores, det_classes):
+                        x0, y0, x1, y1 = (float(v) for v in b)
+                        detections.append({
+                            "image_id": img_idx,
+                            "image_path": paths[i] if paths else None,
+                            "category_id": int(c),
+                            "category_name": self.labelmap.get(int(c), "?"),
+                            "bbox": [x0, y0, x1 - x0, y1 - y0],
+                            "score": float(s),
+                        })
+                img_idx += 1
+                if debug_dir and paths:
+                    self._save_debug_image(paths[i], det_boxes * scale, det_classes,
+                                           os.path.join(debug_dir, f"{bi}_{i}.png"))
+        if save_detections:
+            with open(save_detections, "w") as f:
+                json.dump(detections, f)
+            print(f"wrote {len(detections)} detections: {save_detections}", flush=True)
+        return metric.compute()
+
+    def _save_debug_image(self, src, boxes_abs, classes, out_path):
+        from PIL import Image, ImageDraw
+
+        img = Image.open(src).convert("RGB")
+        draw = ImageDraw.Draw(img)
+        for b, c in zip(boxes_abs, classes):
+            draw.rectangle(list(map(float, b)), outline=(0, 255, 0), width=2)
+            draw.text((float(b[0]), float(b[1])), self.labelmap.get(int(c), "?"),
+                      fill=(0, 255, 0))
+        img.save(out_path)

@@ -40,8 +40,8 @@ setup(
     install_requires=["jax", "optax", "orbax-checkpoint", "numpy", "pyyaml",
                       "pillow"],
     # owlvit_tpu_torch (the PyTorch/CUDA port) needs torch at run time; its
-    # kernels build with nvcc at first use
+    # kernels build with nvcc at first use, its host C++ with g++
     extras_require={"torch": ["torch"]},
-    package_data={"owlvit_tpu_torch": ["csrc/*.cu"]},
+    package_data={"owlvit_tpu_torch": ["csrc/*.cu", "csrc/*.cuh", "native/src/*.cpp"]},
     cmdclass={"build_ext": BuildNative},
 )

@@ -63,13 +63,12 @@ def test_jax_npz_loads_into_port(tmp_path):
 
     tree = convert.load_params(path)
     model, skipped = convert.from_jax_tree(tree, configs.get_config("tiny"))
-    assert skipped == ["text"]
+    assert skipped == []
     sd = model.state_dict()
     v, L = params["vision"], cfg.vision.num_layers
-    # every non-text leaf maps to one tensor per stacked layer
+    # every leaf, the text tower's included, maps to one tensor per stacked layer
     n_leaves = sum(a.shape[0] if "/layers/" in k else 1
-                   for k, a in jconvert.flatten(params).items()
-                   if not k.startswith("text/"))
+                   for k, a in jconvert.flatten(params).items())
     assert len(sd) == n_leaves
     np.testing.assert_array_equal(sd["vision.patch_embedding.weight"].numpy(),
                                   v["patch_embedding"]["kernel"].T)

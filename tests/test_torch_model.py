@@ -39,7 +39,7 @@ def jax_tree():
 @pytest.fixture(scope="module")
 def port_model(jax_tree):
     model, skipped = from_jax_tree(jax_tree, get_config("tiny"))
-    assert skipped == ["text"]
+    assert skipped == []
     return model.eval()
 
 

@@ -120,6 +120,47 @@ def test_port_trains_cached_without_jax(tmp_path):
     _run(_CACHED_TRAIN_CODE, tmp_path)
 
 
+_RUN_CODE = """
+import importlib
+import json
+import sys
+
+import pytest
+sys.modules["jax"] = None
+for name in ("owlvit_tpu_torch.cli", "owlvit_tpu_torch.data", "owlvit_tpu_torch.data.coco",
+             "owlvit_tpu_torch.data.dataset", "owlvit_tpu_torch.data.loader",
+             "owlvit_tpu_torch.data.synthetic", "owlvit_tpu_torch.data.tokenizer",
+             "owlvit_tpu_torch.models.text", "owlvit_tpu_torch.native",
+             "owlvit_tpu_torch.ops.map_metric", "owlvit_tpu_torch.train.checkpoint",
+             "owlvit_tpu_torch.utils.logging", "owlvit_tpu_torch.utils.tb_writer"):
+    importlib.import_module(name)
+from owlvit_tpu_torch import cli
+
+with open("config.yaml", "w") as f:
+    f.write("data:\\n  synthetic_root: synth\\n  num_train_images: 4\\n  num_test_images: 2\\n"
+            "  max_gt: 8\\n  synthetic_classes: 2\\ntraining:\\n  n_epochs: 1\\n"
+            "  batch_size: 2\\n  checkpoint_dir: ckpt\\n  top_k: 8\\n"
+            "  cache_backbone: true\\nmodel:\\n  name: tiny\\n")
+cli.main(["train", "--config", "config.yaml", "--device", "cpu"])
+cli.main(["eval", "--config", "config.yaml", "--device", "cpu"])
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("owlvit_tpu", "jaxlib", "flax", "optax"))
+assert not leaked, leaked
+print("ok")
+"""
+
+
+def test_port_runs_cli_without_jax(tmp_path):
+    """Every module this port adds for the run imports without jax, and
+    the CLI fine-tunes (query bank from the text tower, cached epoch,
+    checkpoint) and evaluates."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _RUN_CODE], env=env, cwd=tmp_path,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.rstrip().endswith("ok")
+
+
 _SCRIPT_CODE = """
 import importlib.util
 import sys

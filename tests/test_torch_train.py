@@ -153,7 +153,7 @@ def test_lr_schedule_equals_optax(runs, schedule, warmup):
 @pytest.mark.parametrize("field,value", [
     ("grad_accum", 2), ("ema_decay", 0.99), ("augment", True),
     ("augment_hflip", True), ("mesh_data", 2),
-    ("checkpoint_dir", "ckpt")])
+    ("stage_pixels", "on"), ("profile_dir", "prof")])
 def test_unported_options_refused(field, value):
     cfg = tconfig.Config(data=tconfig.DataConfig(),
                          training=tconfig.TrainingConfig(**{field: value}),
