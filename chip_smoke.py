@@ -35,7 +35,28 @@ Phases, each printing its numbers on a line of its own:
      8)); 9 model-sized images; results checked; the forward kernel's launch
      count, a batch bit-equal to a direct forward + NMS, and the kernel path
      against the plain-attention path.
-  8. main_path_kernel: pk_fwd against its plain version at the shapes the
+  8. open_vocab: B/16 bf16, random weights (seed 0), 240 bank queries, the
+     HashTokenizer. DetectorServer(buckets=(1, 8), max_queries=8,
+     one_shot=True) warmed up on both lanes; 17 conditioned requests (two
+     overlapping query sets of 3 and 8 strings, two exemplars, one of them
+     not model-sized, text and image requests mixed in a batch) and 9 bank
+     requests queued before start(). Checks: the batches the queue implies;
+     each conditioned batch bit-equal to serve_batch_conditioned on the
+     server's own query block; within TOL_SLICE of forward_zero_shot /
+     forward_one_shot (pre-NMS scores, boxes) and of plain attention
+     (scores, boxes, logits max-rel); the text cache holding exactly the
+     distinct strings and the exemplar cache the distinct digests; pk_fwd
+     launched 12 times per forward (warm-up batches and exemplar, image
+     batches, cold exemplars) and no other kernel. Then each lane's img/s
+     per bucket (bank, zero-shot, one-shot in turns: 4 windows each of at
+     least 0.75 s and 8 batches; median and spread), the host's us per
+     small launch, 20 cold text encodes and 10 cold exemplar embeds;
+     bulk_detect over 64 images at bucket 32 (bank, zero-shot, bank again)
+     bit-equal to the online server's rows, then timed over 256-image jobs
+     (3 per lane, in turns); the
+     CLI's infer (bank, --queries, --query-image) and bulk-infer on 8
+     make-synthetic images with --device cuda.
+  9. main_path_kernel: pk_fwd against its plain version at the shapes the
      served forward gives it ([8, 2305, 768] and [1, 2305, 768], C = 20, no
      padding) and at the train step's [32, 2305, 768] (per-row max), with
      scaled_dot_product_attention's forward time beside it, each launched
@@ -44,7 +65,7 @@ Phases, each printing its numbers on a line of its own:
      scaled_dot_product_attention's forward + backward, and launched twice:
      dk and dv bit-equal, dq within its reductions' fp32 order; then one
      line with both attention kernels' times (attention_times).
-  9. train: 4 uncached steps of Trainer.train_step, B/16 bf16, random
+ 10. train: 4 uncached steps of Trainer.train_step, B/16 bf16, random
      weights (seed 0), a 240-query bank, batch 32, max_gt 64, ~7 random
      boxes per image, lr 3e-6, weight decay 0.1: finite terms, launch counts
      (12 pk_fwd and 1 pk_bwd per step), frozen parameters bit-unchanged,
@@ -52,7 +73,7 @@ Phases, each printing its numbers on a line of its own:
      each phase of the step, peak memory. Then the trained layer on the
      prefix output of 8 images: kernel path against the plain path, forward
      and backward.
- 10. train_cached: the same recipe with training.cache_backbone, the device
+ 11. train_cached: the same recipe with training.cache_backbone, the device
      pool sized for config.yaml's 2500 images, 64 of them trained on: epoch
      1 (2 steps) fills the pool, epoch 2 (2 steps, no pixels) gathers.
      Default run (bf16 pool): launch counts (11 pk_fwd per filled batch, 1
@@ -63,7 +84,7 @@ Phases, each printing its numbers on a line of its own:
      within 1e-4 in L2); then OWLVIT_FUSED_LN=1 with the int8 pool (22
      add_ln_fwd per filled batch, 2 add_ln_fwd and 2 add_ln_bwd per step;
      rows within rowmax/254; epoch-1 terms against the unfused run). Host wall, CUDA events per phase and peak memory of each.
- 11. run: the fine-tune run as users start it, through Trainer.with_data
+ 12. run: the fine-tune run as users start it, through Trainer.with_data
      (the smoke's own in-memory data: 96 train and 32 test 768x768 images
      of 1-4 filled rectangles on plain backgrounds, 4 classes, made with
      numpy from the seed; a GPU host may have no image decoder):
@@ -82,7 +103,8 @@ Phases, each printing its numbers on a line of its own:
      eval s/image, the bank's build time, peak memory, and whether Pillow,
      png.h and jpeglib.h exist on the machine.
 The kernels JSON (second-to-last line) gives each kernel's launches summed
-over the paths driven (serving, the uncached and cached train runs, the
+over the paths driven (serving, the open-vocabulary lanes, bulk_detect
+and the CLI's inference commands, the uncached and cached train runs, the
 three fine-tune runs, and for
 the transposed entries alone the drives of phase 6; each counted from 0 just
 before it and read just after, each launch once, where the wrapper makes it),
@@ -94,7 +116,9 @@ the device JSON. Any failure raises, so the exit code is non-zero.
 import contextlib
 import copy
 import gc
+import hashlib
 import importlib.util
+import io
 import json
 import os
 import subprocess
@@ -109,14 +133,16 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from owlvit_tpu_torch import cli  # noqa: E402
 from owlvit_tpu_torch.data.dataset import DetectionDataset  # noqa: E402
+from owlvit_tpu_torch.data.tokenizer import HashTokenizer  # noqa: E402
 from owlvit_tpu_torch.models import get_config, owlvit, vit  # noqa: E402
 from owlvit_tpu_torch.ops import _cuda, fused_ln  # noqa: E402
 from owlvit_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from owlvit_tpu_torch.ops import nms as nms_ops  # noqa: E402
 from owlvit_tpu_torch.ops.quant import dequantize_rows  # noqa: E402
 from owlvit_tpu_torch.ops.preprocess import normalize_image  # noqa: E402
-from owlvit_tpu_torch.serve import DetectorServer, _flatten_bucket  # noqa: E402
+from owlvit_tpu_torch.serve import DetectorServer, _flatten_bucket, _size_to_model  # noqa: E402
 from owlvit_tpu_torch.train import Trainer  # noqa: E402
 from owlvit_tpu_torch.utils.config import (  # noqa: E402
     Config, DataConfig, ModelConfig, TrainingConfig)
@@ -634,6 +660,322 @@ def phase_slice():
     del params, srv
     torch.cuda.empty_cache()
     return cfg, launches
+
+
+OV_BUCKETS = (1, 8)
+OV_MAX_QUERIES = 8
+# two overlapping query sets of 3 and 8 strings
+OV_QUERIES = (("a red box", "a green box", "a blue box"),
+              ("a red box", "a green box", "a blue box", "a yellow box", "a cat", "a dog",
+               "a bird", "a person"))
+# the conditioned requests in queue order: ("zs", query set) or ("os", exemplar);
+# with buckets (1, 8) they form batches [0:8] and [8:16] (text and image
+# requests mixed) and [16:17]
+OV_REQUESTS = (("zs", 0), ("os", 0), ("zs", 1), ("os", 0), ("zs", 0), ("os", 1), ("zs", 1),
+               ("os", 0), ("zs", 0), ("zs", 1), ("os", 1), ("zs", 0), ("os", 0), ("zs", 1),
+               ("zs", 0), ("os", 0), ("zs", 1))
+OV_BANK_REQUESTS = 9  # one batch of 8, one of 1
+OV_BULK_IMAGES, OV_BULK_BUCKET = 64, 32
+OV_CLI_TOP = 5
+# lane timing: OV_ROUNDS windows per lane and bucket, the lanes in turns
+OV_ROUNDS, OV_WINDOW_S, OV_WINDOW_BATCHES = 4, 0.75, 8
+OV_COLD_TEXT, OV_COLD_EXEMPLAR = 20, 10
+OV_BULK_TIMING_REPEAT, OV_BULK_ROUNDS = 4, 3  # 256-image jobs, bank and zero-shot in turns
+
+
+def conditioned_prenms(params, cfg, flat, qemb, qmask):
+    """The conditioned lane's forward up to NMS: (boxes [b, P, 4], scores
+    [b, P, Q] = sigmoid(logits), logits)."""
+    S = cfg.vision.image_size
+    with torch.inference_mode():
+        px = normalize_image(flat.reshape(flat.shape[0], S, S, 3))
+        feats = owlvit.image_embedder(params, cfg, px)
+        boxes = owlvit.box_predictor(params, cfg, feats)
+        logits = owlvit.class_predictor(params, cfg, feats, qemb, qmask)
+    return boxes, torch.sigmoid(logits), logits
+
+
+def query_block(srv, reqs, digests):
+    """The server's padded query block for a batch of conditioned requests,
+    from its caches: [bucket, Q, proj] fp32 and [bucket, Q] int32 on the card."""
+    bucket = next(b for b in srv.buckets if b >= len(reqs))
+    qemb = np.zeros((bucket, OV_MAX_QUERIES, srv._proj), np.float32)
+    qmask = np.zeros((bucket, OV_MAX_QUERIES), np.int32)
+    for i, (kind, j) in enumerate(reqs):
+        e = (np.stack([srv._text_cache[q] for q in OV_QUERIES[j]]) if kind == "zs"
+             else srv._qimg_cache[digests[j]][None])
+        qemb[i, :len(e)] = e
+        qmask[i, :len(e)] = 1
+    return torch.from_numpy(qemb).cuda(), torch.from_numpy(qmask).cuda()
+
+
+def window_img_per_s(serve, batch):
+    """img/s of a lane's path per batch (its serve_batch call and the fetch
+    of the packed detections): host wall over one window of at least
+    OV_WINDOW_S seconds and OV_WINDOW_BATCHES batches."""
+    n, t0 = 0, time.perf_counter()
+    while n < OV_WINDOW_BATCHES or time.perf_counter() - t0 < OV_WINDOW_S:
+        serve().cpu()
+        n += 1
+    return batch * n / (time.perf_counter() - t0)
+
+
+def spread(xs):
+    """Median, least, most and count of a list of samples."""
+    return {"median": float(np.median(xs)), "min": float(min(xs)), "max": float(max(xs)),
+            "n": len(xs)}
+
+
+def launch_us(n=2000, windows=5):
+    """us per small launch queued by this host (n in-place adds on a
+    16-element tensor, then a synchronize) over `windows` windows: the rate
+    that bounds host-launched loops such as NMS's, read beside the lanes."""
+    x = torch.zeros(16, device="cuda")
+    out = []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            x.add_(1)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e6 / n)
+    return spread(out)
+
+
+def phase_open_vocab():
+    """Zero-shot and one-shot serving, bulk_detect and the CLI's inference
+    commands, B/16 bf16. Returns the launches of the paths driven."""
+    cfg = get_config("b16", dtype="bfloat16")
+    L = cfg.vision.num_layers
+    params = owlvit.init(cfg, torch.Generator().manual_seed(0), num_queries=240).to("cuda")
+    S = cfg.vision.image_size
+    rng = np.random.default_rng(1)
+    images = rng.integers(0, 256, (len(OV_REQUESTS) + OV_BANK_REQUESTS, S, S, 3), dtype=np.uint8)
+    # two exemplars, the second not model-sized (the server resizes it)
+    exemplars = [rng.integers(0, 256, (S, S, 3), dtype=np.uint8),
+                 rng.integers(0, 256, (480, 640, 3), dtype=np.uint8)]
+    digests = [hashlib.sha1(_size_to_model(e, S).tobytes()).hexdigest() for e in exemplars]
+    tok = HashTokenizer(cfg.text.vocab_size, max_len=cfg.text.max_len)
+    total = dict.fromkeys(KERNELS, 0)
+
+    # --- the online server: warm-up, then the queued requests of both lanes
+    reset_counts()
+    t0 = time.perf_counter()
+    srv = DetectorServer(params, cfg, buckets=OV_BUCKETS, max_queries=OV_MAX_QUERIES,
+                         one_shot=True, tokenizer=tok, device="cuda", autostart=False)
+    warmup_s = time.perf_counter() - t0
+    n_cond = len(OV_REQUESTS)
+    futs = []
+    for i, (kind, j) in enumerate(OV_REQUESTS):
+        futs.append(srv.submit(images[i], queries=list(OV_QUERIES[j])) if kind == "zs"
+                    else srv.submit(images[i], query_image=exemplars[j]))
+    bank_futs = [srv.submit(im) for im in images[n_cond:]]
+    t0 = time.perf_counter()
+    srv.start()
+    results = [f.result() for f in futs]
+    bank_results = [f.result() for f in bank_futs]
+    serve_s = time.perf_counter() - t0
+    launches = read_counts()
+    stats = srv.stats()
+    total = {k: total[k] + launches[k] for k in KERNELS}
+
+    # (a) the batches the queue implies; (e) the caches; (f) the launches
+    warm_batches = 2 * len(OV_BUCKETS)
+    check(stats["bucket_counts"] == {1: 2, 8: 3} and stats["zs_batches"] == 3
+          and stats["batches"] == 5, f"batches {stats}")
+    distinct = sorted(set(OV_QUERIES[0]) | set(OV_QUERIES[1]))
+    check(sorted(srv._text_cache) == distinct, f"text cache {sorted(srv._text_cache)}")
+    check(sorted(srv._qimg_cache) == sorted(digests), "exemplar cache")
+    forwards = warm_batches + 1 + stats["batches"] + len(exemplars)
+    check(launches == {**dict.fromkeys(KERNELS, 0), "pk_fwd": L * forwards},
+          f"{launches} launches for {forwards} forwards (warm-up {warm_batches} batches "
+          f"and 1 exemplar, {stats['batches']} batches, {len(exemplars)} exemplars)")
+    for res in results + bank_results:
+        check(np.isfinite(res["boxes"]).all() and np.isfinite(res["scores"]).all()
+              and ((res["scores"] >= 0) & (res["scores"] <= 1)).all(), "bad result")
+    for (kind, j), res in zip(OV_REQUESTS, results):
+        want = set(OV_QUERIES[j]) if kind == "zs" else {"query-object"}
+        check(set(res["labels"]) <= want and len(res["labels"]) == len(res["scores"]),
+              f"labels {res['labels'][:4]}")
+
+    # (b) each conditioned batch bit-equal to a direct call on the server's
+    # own query block; (c) against forward_zero_shot / forward_one_shot;
+    # (d) the kernel path against plain attention
+    err_ref = {"zero_shot_scores": 0.0, "zero_shot_boxes": 0.0,
+               "one_shot_scores": 0.0, "one_shot_boxes": 0.0}
+    err_plain = {"scores": 0.0, "boxes": 0.0, "logits_max_rel": 0.0}
+    enc = [tok(list(q)) for q in OV_QUERIES]
+    qpx = [normalize_image(torch.tensor(_size_to_model(e, S)[None]).cuda())
+           for e in exemplars]
+    for lo in range(0, n_cond, OV_BUCKETS[-1]):
+        reqs = OV_REQUESTS[lo:lo + OV_BUCKETS[-1]]
+        n = len(reqs)
+        qemb, qmask = query_block(srv, reqs, digests)
+        bucket = qemb.shape[0]
+        flat = torch.from_numpy(_flatten_bucket(list(images[lo:lo + n]), bucket, S)).cuda()
+        packed = srv.serve_batch_conditioned(flat, qemb, qmask).cpu().numpy()
+        packed = packed.reshape(bucket, srv._top_k, 7)
+        for i, (kind, j) in enumerate(reqs):
+            direct = srv._unpack_row(packed[i], (S, S), OV_QUERIES[j] if kind == "zs" else None,
+                                     one_shot=kind == "os")
+            for key in ("boxes", "scores", "classes", "labels"):
+                check(np.array_equal(direct[key], results[lo + i][key]),
+                      f"conditioned request {lo + i} {key} differs from the direct call")
+        boxes, scores, logits = conditioned_prenms(params, srv.cfg, flat, qemb, qmask)
+        for i, (kind, j) in enumerate(reqs):
+            px = normalize_image(flat[i:i + 1].reshape(1, S, S, 3))
+            with torch.inference_mode():
+                if kind == "zs":
+                    rb, rl = owlvit.forward_zero_shot(
+                        params, srv.cfg, px, torch.from_numpy(enc[j]["input_ids"]).cuda(),
+                        torch.from_numpy(enc[j]["attention_mask"]).cuda())
+                else:
+                    rb, rl = owlvit.forward_one_shot(params, srv.cfg, px, qpx[j])
+            nq = rl.shape[-1]
+            err_ref[f"{'zero' if kind == 'zs' else 'one'}_shot_scores"] = max(
+                err_ref[f"{'zero' if kind == 'zs' else 'one'}_shot_scores"],
+                max_abs(scores[i, :, :nq], torch.sigmoid(rl[0])))
+            err_ref[f"{'zero' if kind == 'zs' else 'one'}_shot_boxes"] = max(
+                err_ref[f"{'zero' if kind == 'zs' else 'one'}_shot_boxes"],
+                max_abs(boxes[i], rb[0]))
+        pb, ps, pl = conditioned_prenms(params, srv.cfg.replace(attention_impl="xla"), flat,
+                                        qemb, qmask)
+        real = qmask[:n, None, :].expand(-1, pl.shape[1], -1) > 0
+        err_plain["scores"] = max(err_plain["scores"], max_abs(scores[:n], ps[:n]))
+        err_plain["boxes"] = max(err_plain["boxes"], max_abs(boxes[:n], pb[:n]))
+        err_plain["logits_max_rel"] = max(err_plain["logits_max_rel"],
+                                          max_rel(logits[:n][real], pl[:n][real]))
+    check(all(e <= TOL_SLICE for e in err_ref.values()),
+          f"served vs forward_zero_shot / forward_one_shot: {err_ref}")
+    check(err_plain["scores"] <= TOL_SLICE and err_plain["boxes"] <= TOL_SLICE
+          and err_plain["logits_max_rel"] <= TOL_SLICE,
+          f"conditioned lane, kernel vs plain attention: {err_plain}")
+
+    # each lane's path per bucket, timed in turns: OV_ROUNDS windows each,
+    # the order reversed every other round; then the host's launch rate and
+    # the cold encodes
+    lane = {}
+    for bucket in OV_BUCKETS:
+        flat = torch.from_numpy(_flatten_bucket(list(images[:bucket]), bucket, S)).cuda()
+        blocks = {"zero_shot": query_block(srv, [("zs", 1)] * bucket, digests),
+                  "one_shot": query_block(srv, [("os", 0)] * bucket, digests)}
+        serves = {"bank": lambda: srv.serve_batch(flat),
+                  **{name: (lambda q=q: srv.serve_batch_conditioned(flat, *q))
+                     for name, q in blocks.items()}}
+        for serve in serves.values():
+            serve().cpu()
+        for r in range(OV_ROUNDS):
+            for name in (list(serves) if r % 2 == 0 else list(serves)[::-1]):
+                lane.setdefault(f"{name}_b{bucket}", []).append(
+                    window_img_per_s(serves[name], bucket))
+    lane = {k: spread(v) for k, v in lane.items()}
+    host_launch_us = launch_us()
+    text_ms, embed_ms = [], []
+    for i in range(OV_COLD_TEXT):
+        t0 = time.perf_counter()
+        srv._encode_text(f"a cold query number {i}")
+        text_ms.append((time.perf_counter() - t0) * 1e3)
+    for i in range(OV_COLD_EXEMPLAR):
+        fresh = rng.integers(0, 256, (S, S, 3), dtype=np.uint8)
+        t0 = time.perf_counter()
+        srv._embed_qimage(fresh)
+        embed_ms.append((time.perf_counter() - t0) * 1e3)
+    srv.close()
+
+    # (g) bulk_detect against the online server at bucket 32, bank and zero-shot
+    bulk_images = list(rng.integers(0, 256, (OV_BULK_IMAGES, S, S, 3), dtype=np.uint8))
+    queries = list(OV_QUERIES[1])
+    reset_counts()
+    srv = DetectorServer(params, cfg, buckets=(OV_BULK_BUCKET,), max_queries=OV_MAX_QUERIES,
+                         tokenizer=tok, device="cuda", warmup=False, autostart=False)
+    futs = ([srv.submit(im) for im in bulk_images]
+            + [srv.submit(im, queries=queries) for im in bulk_images])
+    srv.start()
+    online = [f.result() for f in futs]
+    bulk, bulk_s = [], {}
+    # the first job allocates the job's pinned buffers; the bank job runs
+    # again last, warm
+    for name, q in (("bank_first", None), ("zero_shot", queries), ("bank", None)):
+        bulk += srv.bulk_detect(bulk_images, queries=q)
+        bulk_s[name] = srv.stats()["bulk"]["last_job_secs"]
+    launches = read_counts()
+    bstats = srv.stats()
+    # offline img/s over longer jobs (the 64 images repeated), bank and
+    # zero-shot in turns; after the count, so the launch check below holds
+    timing_images = bulk_images * OV_BULK_TIMING_REPEAT
+    bulk_rate = {}
+    for _ in range(OV_BULK_ROUNDS):
+        for name, q in (("bank", None), ("zero_shot", queries)):
+            srv.bulk_detect(timing_images, queries=q)
+            bulk_rate.setdefault(name, []).append(
+                len(timing_images) / srv.stats()["bulk"]["last_job_secs"])
+    srv.close()
+    total = {k: total[k] + launches[k] for k in KERNELS}
+    per_pass = OV_BULK_IMAGES // OV_BULK_BUCKET
+    n_batches = 2 * per_pass + 3 * per_pass  # online: bank + zero-shot; three bulk jobs
+    check(bstats["batches"] == 2 * per_pass and bstats["bulk"]["batches"] == 3 * per_pass
+          and bstats["bulk"]["images"] == 3 * OV_BULK_IMAGES, f"bulk stats {bstats}")
+    check(launches == {**dict.fromkeys(KERNELS, 0), "pk_fwd": L * n_batches},
+          f"bulk: {launches} launches for {n_batches} batches")
+    online += online[:OV_BULK_IMAGES]  # the bank job's rows again
+    for i, (a, b) in enumerate(zip(online, bulk, strict=True)):
+        for key in ("boxes", "scores", "classes"):
+            check(np.array_equal(a[key], b[key]), f"bulk row {i} {key} differs from online")
+        check(a.get("labels") == b.get("labels"), f"bulk row {i} labels")
+
+    # (h) the CLI's infer (three modes) and bulk-infer on the card
+    cli_walls, cli_launches = {}, {}
+    with tempfile.TemporaryDirectory() as d:
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["make-synthetic", "--root", f"{d}/synth", "--n-train", "6",
+                      "--n-test", "2", "--n-classes", "3"])
+        with open(f"{d}/config.yaml", "w") as f:
+            f.write(f"data:\n  synthetic_root: {d}/synth\n  num_train_images: 6\n"
+                    "  num_test_images: 2\n  synthetic_classes: 3\ntraining:\n"
+                    "  confidence_threshold: 0.0\nmodel:\n  name: b16\n  dtype: bfloat16\n")
+        img_dir = f"{d}/synth/images"
+        files = sorted(os.listdir(img_dir))
+        base = ["--config", f"{d}/config.yaml", "--workdir", d, "--device", "cuda"]
+        runs = {"infer_bank": ["infer", *base, "--image", f"{img_dir}/{files[0]}"],
+                "infer_queries": ["infer", *base, "--image", f"{img_dir}/{files[0]}",
+                                  "--queries", *OV_QUERIES[0]],
+                "infer_query_image": ["infer", *base, "--image", f"{img_dir}/{files[0]}",
+                                      "--query-image", f"{img_dir}/{files[1]}"],
+                "bulk_infer": ["bulk-infer", *base, "--input-dir", img_dir,
+                               "--out", f"{d}/bulk.json"]}
+        want = {"infer_bank": 1, "infer_queries": 1, "infer_query_image": 2, "bulk_infer": 1}
+        for name, argv in runs.items():
+            reset_counts()
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                cli.main([*argv, "--top", str(OV_CLI_TOP)] if name != "bulk_infer" else argv)
+            torch.cuda.synchronize()
+            cli_walls[name] = time.perf_counter() - t0
+            cli_launches[name] = read_counts()
+            total = {k: total[k] + cli_launches[name][k] for k in KERNELS}
+            check(cli_launches[name] == {**dict.fromkeys(KERNELS, 0), "pk_fwd": L * want[name]},
+                  f"cli {name}: {cli_launches[name]} launches")
+            lines = [ln for ln in out.getvalue().splitlines() if "[" in ln]
+            if name != "bulk_infer":
+                check(len(lines) == OV_CLI_TOP, f"cli {name} printed {out.getvalue()!r}")
+        with open(f"{d}/bulk.json") as f:
+            records = json.load(f)
+        check(sorted(records) == files and all(
+            len(r["boxes"]) == len(r["labels"]) > 0 and np.isfinite(r["scores"]).all()
+            for r in records.values()), f"bulk-infer wrote {list(records)}")
+    del params
+    torch.cuda.empty_cache()
+    emit("open_vocab", model="b16", dtype="bfloat16", requests={
+        "conditioned": n_cond, "bank": OV_BANK_REQUESTS}, warmup_s=warmup_s,
+        serve_s=serve_s, stats=stats, lane_img_per_s=lane, host_launch_us=host_launch_us,
+        cold_text_encode_ms=spread(text_ms), cold_exemplar_embed_ms=spread(embed_ms),
+        vs_forward_zero_one_shot_max_abs=err_ref, kernel_vs_plain=err_plain,
+        bulk_check_job_s=bulk_s, bulk_img_per_s={
+            k: spread(v) for k, v in bulk_rate.items()},
+        cli_walls_s=cli_walls, cli_launches=cli_launches,
+        launches=total)
+    return total
 
 
 def train_batch(rng, B, G, S, n_classes):
@@ -1366,6 +1708,7 @@ def main():
     ln = phase_kernel_ln()
     transposed, transposed_launches = phase_kernel_transposed()
     cfg, serve_launches = phase_slice()
+    open_vocab_launches = phase_open_vocab()
     b16 = cfg.vision
     served = [fwd_row(b16, bucket, C) for bucket in (8, 1)]
     served.append(fwd_row(b16, 32, None))  # the train step's shape and softmax
@@ -1383,8 +1726,8 @@ def main():
     train_launches = phase_train()
     cached_launches = phase_train_cached()
     run_launches = phase_run()
-    launches = {k: sum(run[k] for run in (serve_launches, train_launches, cached_launches,
-                                          run_launches))
+    launches = {k: sum(run[k] for run in (serve_launches, open_vocab_launches, train_launches,
+                                          cached_launches, run_launches))
                 for k in KERNELS}
     for k in ("transposed_fwd", "transposed_bwd"):  # the drives of the transposed Function
         launches[k] += transposed_launches[k]

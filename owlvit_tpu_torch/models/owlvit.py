@@ -1,13 +1,13 @@
-"""OWL-ViT detector, query-bank path (counterpart of
-owlvit_tpu/models/owlvit.py: `init`, `image_embedder`, `_merge_feats`,
-`box_predictor`, `class_embeds`, `class_predictor_querybank`,
-`forward_train`, `embed_prefix`, `forward_train_from_prefix`,
-`build_query_bank`).
+"""OWL-ViT detector (counterpart of owlvit_tpu/models/owlvit.py): the
+query-bank path (`init`, `image_embedder`, `_merge_feats`, `box_predictor`,
+`class_embeds`, `class_predictor_querybank`, `forward_train`,
+`embed_prefix`, `forward_train_from_prefix`, `build_query_bank`) and the
+open-vocabulary heads (`class_predictor`, `forward_zero_shot`,
+`embed_image_query`, `forward_one_shot`).
 
 The parameters live in an `OwlViT` module whose attribute names follow the
 JAX parameter tree; the functions below keep the JAX package's signatures
-with that module in the place of the tree. The zero-shot and one-shot heads
-are not ported yet.
+with that module in the place of the tree.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from owlvit_tpu_torch.ops import boxes as box_ops
@@ -44,8 +45,8 @@ class BoxHead(nn.Module):
 
 
 class ClassHead(nn.Module):
-    """dense0 projects image features for the query bank; logit_shift and
-    logit_scale belong to the zero-shot head and are carried for it."""
+    """dense0 projects image features (both heads); logit_shift and
+    logit_scale belong to the open-vocabulary head, `class_predictor`."""
 
     def __init__(self, cfg: OwlViTConfig, *,
                  generator: Optional[torch.Generator] = None):
@@ -181,3 +182,81 @@ def forward_train_from_prefix(params: OwlViT, cfg: OwlViTConfig, acts):
     feats = _merge_feats(params, cfg, last_hidden)
     return (box_predictor(params, cfg, feats),
             class_predictor_querybank(params, cfg, feats))
+
+
+def class_predictor(params: OwlViT, cfg: OwlViTConfig, image_feats,
+                    query_embeds, query_mask=None):
+    """HF-style class head with the learned logit shift and scale (the
+    zero-shot and one-shot head; modeling_owlvit.py:1144-1177).
+
+    image_feats [B, P, D], query_embeds [B, Q, proj] -> logits [B, P, Q]
+    fp32. Both sides L2-normalised (+1e-6); a query whose mask is 0 gets
+    fp32's lowest value."""
+    head = params.class_head
+    img = class_embeds(params, image_feats).float()
+    img = img / (torch.linalg.vector_norm(img, dim=-1, keepdim=True) + 1e-6)
+    q = query_embeds.float()
+    q = q / (torch.linalg.vector_norm(q, dim=-1, keepdim=True) + 1e-6)
+    logits = img @ q.transpose(-1, -2)
+    shift = head.logit_shift(image_feats).float()
+    scale = F.elu(head.logit_scale(image_feats).float()) + 1.0
+    logits = (logits + shift) * scale
+    if query_mask is not None:
+        logits = torch.where(query_mask[:, None, :] > 0, logits,
+                             torch.finfo(torch.float32).min)
+    return logits
+
+
+def forward_zero_shot(params: OwlViT, cfg: OwlViTConfig, pixel_values,
+                      input_ids, attention_mask=None):
+    """Text-conditioned open-vocabulary detection (HF forward, :1560-1650).
+
+    input_ids [Q, S]: one query set shared by the batch; a query whose first
+    token id is 0 is masked. -> (pred_boxes xyxy [B, P, 4], logits
+    [B, P, Q])."""
+    feats = image_embedder(params, cfg, pixel_values)
+    pred_boxes = box_predictor(params, cfg, feats)
+    B, Q = feats.shape[0], input_ids.shape[0]
+    # OwlViTModel.forward normalises the text embeddings (:1084)
+    text = build_query_bank(params, cfg, input_ids, attention_mask)
+    query_embeds = text[None].expand(B, *text.shape)
+    query_mask = (input_ids[:, 0] > 0).int()[None].expand(B, Q)
+    return pred_boxes, class_predictor(params, cfg, feats, query_embeds,
+                                       query_mask)
+
+
+def embed_image_query(params: OwlViT, cfg: OwlViTConfig, query_pixel_values):
+    """One-shot (image-conditioned) queries, OWLv2 style: per query image,
+    the predicted boxes within 80% of the best IoU with the whole image
+    ([0, 0, 1, 1]; GIoU when every IoU is 0), and among them the embedding
+    least similar to the mean patch embedding (the first index on ties).
+
+    -> (query_embeds [B, proj], best_box_idx [B], pred_boxes [B, P, 4])."""
+    feats = image_embedder(params, cfg, query_pixel_values)
+    embeds = class_embeds(params, feats)  # [B, P, proj]
+    pred_boxes = box_predictor(params, cfg, feats)  # xyxy [B, P, 4]
+    full = pred_boxes.new_tensor([0.0, 0.0, 1.0, 1.0]).expand_as(pred_boxes)
+    iou = box_ops.elementwise_iou(full, pred_boxes)  # [B, P]
+    giou = box_ops.elementwise_giou(full, pred_boxes)
+    # HF falls back to GIoU when nothing overlaps (torch.all(ious == 0))
+    use_giou = (iou == 0.0).all(dim=-1, keepdim=True)
+    score = torch.where(use_giou, giou, iou)
+    selected = score >= score.amax(dim=-1, keepdim=True) * 0.8
+    mean_embed = embeds.mean(dim=1, keepdim=True)  # [B, 1, proj]
+    mean_sim = (embeds @ mean_embed.transpose(-1, -2))[..., 0]  # [B, P]
+    masked = torch.where(selected, mean_sim, torch.full_like(mean_sim, float("inf")))
+    best = torch.argmin(masked, dim=-1)  # the first minimal index
+    query_embeds = torch.gather(
+        embeds, 1, best[:, None, None].expand(-1, 1, embeds.shape[-1]))[:, 0]
+    return query_embeds, best, pred_boxes
+
+
+def forward_one_shot(params: OwlViT, cfg: OwlViTConfig, pixel_values,
+                     query_pixel_values):
+    """Image-guided detection (HF image_guided_detection, :1425+).
+
+    -> (pred_boxes xyxy [B, P, 4], logits [B, P, 1])."""
+    query_embeds, _, _ = embed_image_query(params, cfg, query_pixel_values)
+    feats = image_embedder(params, cfg, pixel_values)
+    pred_boxes = box_predictor(params, cfg, feats)
+    return pred_boxes, class_predictor(params, cfg, feats, query_embeds[:, None, :])

@@ -143,6 +143,14 @@ with open("config.yaml", "w") as f:
             "  cache_backbone: true\\nmodel:\\n  name: tiny\\n")
 cli.main(["train", "--config", "config.yaml", "--device", "cpu"])
 cli.main(["eval", "--config", "config.yaml", "--device", "cpu"])
+import os
+imgs = sorted(os.listdir("synth/images"))
+for extra in ([], ["--queries", "a cat", "a dog"], ["--query-image", "synth/images/" + imgs[1]]):
+    cli.main(["infer", "--config", "config.yaml", "--device", "cpu",
+              "--image", "synth/images/" + imgs[0], *extra])
+cli.main(["bulk-infer", "--config", "config.yaml", "--device", "cpu", "--input-dir",
+          "synth/images", "--out", "bulk.json", "--batch-size", "2", "--queries", "a cat"])
+assert len(json.load(open("bulk.json"))) == len(imgs)
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("owlvit_tpu", "jaxlib", "flax", "optax"))
 assert not leaked, leaked
@@ -153,12 +161,57 @@ print("ok")
 def test_port_runs_cli_without_jax(tmp_path):
     """Every module this port adds for the run imports without jax, and
     the CLI fine-tunes (query bank from the text tower, cached epoch,
-    checkpoint) and evaluates."""
+    checkpoint), evaluates, infers in its three modes (bank, --queries,
+    --query-image) and runs bulk-infer."""
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", _RUN_CODE], env=env, cwd=tmp_path,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.rstrip().endswith("ok")
+
+
+_OPEN_VOCAB_CODE = """
+import sys
+
+import pytest
+sys.modules["jax"] = None
+import numpy as np
+import torch
+from owlvit_tpu_torch.data.tokenizer import HashTokenizer
+from owlvit_tpu_torch.models import convert, get_config, owlvit
+from owlvit_tpu_torch.ops import preprocess
+from owlvit_tpu_torch.serve import DetectorServer, make_app
+
+cfg = get_config("tiny")
+model = owlvit.init(cfg, torch.Generator().manual_seed(0), num_queries=12)
+rng = np.random.default_rng(0)
+img, qimg = rng.integers(0, 255, (2, 96, 96, 3), dtype=np.uint8)
+tok = HashTokenizer(cfg.text.vocab_size, max_len=cfg.text.max_len)
+with DetectorServer(model, cfg, buckets=(1, 2), top_k=8, device="cpu", tokenizer=tok,
+                    one_shot=True) as srv:
+    zs = srv.detect(img, queries=["a cat", "a dog"], timeout=120)
+    os_ = srv.detect(img, query_image=qimg, timeout=120)
+    bulk = srv.bulk_detect([img, qimg, img], queries=["a cat"])
+    app = make_app(srv)
+assert set(zs["labels"]) <= {"a cat", "a dog"} and set(os_["labels"]) <= {"query-object"}
+assert len(bulk) == 3 and "/detect" in {r.resource.canonical for r in app.router.routes()}
+x = preprocess.preprocess_image(torch.from_numpy(rng.integers(0, 255, (50, 70, 3), dtype=np.uint8)),
+                                size=96)
+assert x.shape == (96, 96, 3) and torch.isfinite(x).all()
+convert.save_params("p.npz", {"a": {"b": np.zeros(3, np.float32)}})
+assert convert.load_params("p.npz")["a"]["b"].shape == (3,)
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("owlvit_tpu", "jaxlib", "flax", "optax"))
+assert not leaked, leaked
+print("ok")
+"""
+
+
+def test_port_serves_open_vocab_without_jax(tmp_path):
+    """The zero-shot and one-shot lanes, bulk_detect, the HTTP app, the
+    resize and the npz writer run with jax impossible to import."""
+    pytest.importorskip("aiohttp")
+    _run(_OPEN_VOCAB_CODE, tmp_path)
 
 
 _SCRIPT_CODE = """
