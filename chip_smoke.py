@@ -102,10 +102,38 @@ Phases, each printing its numbers on a line of its own:
      batch, 1 per gathered step, 1 pk_bwd per step). Epoch walls and img/s,
      eval s/image, the bank's build time, peak memory, and whether Pillow,
      png.h and jpeglib.h exist on the machine.
+ 13. train_options: the fine-tune options at B/16 bf16, batch 32, random
+     weights (seed 0). (a) The hflip recipe through Trainer.with_data on
+     phase 12's in-memory images (96 + 32): cache_backbone with the "auto"
+     store, augment_hflip, grad_accum 2, ema_decay 0.999, ema_eval,
+     keep_best, the device pool sized for config.yaml's 2500 images x 2 rows
+     (17.7 GB); 2 epochs, then a run resumed from the epoch-1 checkpoint
+     (step 3, in the middle of an accumulation) for one more epoch. Checks:
+     auto resolves to the device and the banner prints the pool and the
+     budget; 22 + 1 pk_fwd and 1 pk_bwd per filled step, 1 and 1 per
+     gathered step; the stored rows 2i and 2i+1 bit-equal to a fresh
+     embed_prefix of the pixels and of their mirror; the trainable
+     parameters bit-unchanged after each odd micro-step, every one moved
+     after each even one; the EMA bit-equal to its recursion recomputed from
+     the parameters; the resumed accumulator, micro-step and EMA bit-equal
+     to those saved; evaluate's packed detections bit-equal to a direct
+     forward on the EMA weights, the trained parameters left as they were.
+     (b) One cached and one uncached hflip step from the same state and
+     flips: the stored rows bit-equal to the uncached step's prefix, the
+     terms within 1e-3. (c) trainable_last_k 12, uncached: 2 steps with
+     remat off and on from the same states (12 + 12 launches against
+     24 + 12), terms bit-equal, gradients within twice the spread of the
+     no-remat step repeated from the same state (pk_bwd's dq order), peak
+     memory lower with remat; one
+     remat step under OWLVIT_FUSED_LN=1 (add_ln_fwd twice per boundary,
+     add_ln_bwd once). (d) 2 uncached steps with augment (colour 0.4, scale
+     0.7-1.3), replayed from the same states: terms bit-equal. (e) A cached
+     run with profile_dir: the Chrome trace of steps 1-2 names pk_fwd and
+     pk_bwd; its device kernels summed by name per step.
 The kernels JSON (second-to-last line) gives each kernel's launches summed
 over the paths driven (serving, the open-vocabulary lanes, bulk_detect
 and the CLI's inference commands, the uncached and cached train runs, the
-three fine-tune runs, and for
+three fine-tune runs, the training options' drives, and for
 the transposed entries alone the drives of phase 6; each counted from 0 just
 before it and read just after, each launch once, where the wrapper makes it),
 its error, time, plain time, bound and library time at its main-path shape;
@@ -121,6 +149,7 @@ import importlib.util
 import io
 import json
 import os
+import shutil
 import subprocess
 import tempfile
 import time
@@ -1698,6 +1727,478 @@ def phase_run(n_train=96, n_test=32, batch=32, max_gt=16):
     return total
 
 
+# ------------------------------------------------------------ train_options
+
+# The cached hflip step against the uncached one from the same state and the
+# same flips: the stored mirrored row is bit-equal to the prefix the uncached
+# step computes, so the tail sees the same inputs; the terms are held to
+# 1e-3 relative (the tail's bf16 arithmetic on a copied tensor; a flipped
+# Hungarian assignment would exceed it).
+TOL_HFLIP_TERMS = 1e-3
+# remat: the recomputed forward is bit-equal (pk_fwd is deterministic), so
+# remat and no remat differ only by pk_bwd's dq reductions, whose order
+# changes from launch to launch (ROADMAP.md queue 3: one bf16 ulp on ~1 in
+# 58,000 dq elements), carried back through 12 bf16 layers. That spread is
+# measured in the same call: the no-remat step repeated from the same state
+# (2.1e-3 in L2 norm at trainable_last_k 12 on an H100). The remat step's
+# gradients are held within twice the spread of the no-remat step's, and
+# the spread itself within 1e-2.
+TOL_REMAT_VS_SPREAD, TOL_DQ_SPREAD = 2.0, 1e-2
+
+
+class RecipePool(Trainer):
+    """Trainer whose device pool is sized for config.yaml's N_IMAGES train
+    images (two rows each under augment_hflip) whatever the data set's
+    length: the smoke trains on the first rows of the recipe's pool."""
+
+    def __init__(self, *args, n_images=None, **kwargs):
+        super().__init__(*args, n_images=N_IMAGES if n_images else None, **kwargs)
+
+
+def options_config(n_epochs, batch, max_gt, **training):
+    return Config(DataConfig(max_gt=max_gt),
+                  TrainingConfig(**{"n_epochs": n_epochs, "learning_rate": 3e-6,
+                                    "weight_decay": 0.1, "batch_size": batch,
+                                    "eval_every_epochs": 1, "log_file": "metrics.jsonl",
+                                    "seed": 0, **training}),
+                  ModelConfig(name="b16", dtype="bfloat16", trainable_last_k=1))
+
+
+def snapshot(tensors):
+    return [t.detach().clone() for t in tensors]
+
+
+class StepRecorder:
+    """Wraps trainer.train_step (grad_accum 2, the EMA on): per micro-step
+    the launches and whether the batch filled pool rows; the trainable
+    parameters bit-unchanged after an odd micro-step and every one moved
+    after an even one; the EMA bit-equal to e * d + p * (1 - d) recomputed
+    here from the parameters after each update. Keeps the first filled
+    batch's rows and pixels, and a copy of the state and the EMA at each
+    checkpoint (trainer.state)."""
+
+    def __init__(self, trainer, ema):
+        self.trainer, self.ema, self.d = trainer, snapshot(ema), trainer.cfg.training.ema_decay
+        self.steps, self.first_fill, self.saved = [], None, {}
+        self.params = snapshot(trainer.params)
+        step, state = trainer.train_step, trainer.state
+
+        def recorded_step(batch, mark=None):
+            idxs = np.asarray(batch["indices"])
+            fill = not trainer.filled[2 * idxs].all()
+            if fill and self.first_fill is None:
+                self.first_fill = (idxs.copy(), batch["image"].clone())
+            before = read_counts()
+            terms = step(batch, mark)
+            torch.cuda.synchronize()
+            launches = {k: v - before[k] for k, v in read_counts().items()}
+            params = snapshot(trainer.params)
+            moved = sum(not torch.equal(a, b) for a, b in zip(params, self.params))
+            if trainer.step % 2 == 0:  # an update: the EMA follows
+                with torch.no_grad():
+                    for e, p in zip(self.ema, params):
+                        e.mul_(self.d).add_(p.float() * (1.0 - self.d))
+            self.params = params
+            self.steps.append({"step": trainer.step, "fill": fill, "launches": launches,
+                               "moved": moved, "terms": terms.tolist(),
+                               "ema_equal": all(torch.equal(a, b)
+                                                for a, b in zip(self.ema, trainer.ema))})
+            return terms
+
+        def recorded_state():
+            out = state()
+            self.saved[trainer.step] = {"state": copy.deepcopy(out),
+                                        "ema": snapshot(trainer.ema)}
+            return out
+
+        trainer.train_step, trainer.state = recorded_step, recorded_state
+
+    def check(self, what, n_params, L):
+        for s in self.steps:
+            want = {**dict.fromkeys(KERNELS, 0), "pk_fwd": 2 * (L - 1) + 1 if s["fill"] else 1,
+                    "pk_bwd": 1}
+            check(s["launches"] == want, f"{what} step {s['step']}: {s['launches']} launches, "
+                  f"fill={s['fill']}")
+            check(s["moved"] == (n_params if s["step"] % 2 == 0 else 0),
+                  f"{what} step {s['step']}: {s['moved']} of {n_params} trainable "
+                  "parameters moved")
+            check(s["ema_equal"], f"{what} step {s['step']}: the EMA differs from its recursion")
+            check(np.isfinite(s["terms"]).all(), f"{what} step {s['step']}: terms {s['terms']}")
+
+
+def captured(build):
+    """Run build() with its standard output captured, echo it, and return
+    (result, text): the banner is checked."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = build()
+    print(out.getvalue(), end="", flush=True)
+    return result, out.getvalue()
+
+
+def hflip_recipe_run(train_ds, test_ds, batch, max_gt, L):
+    """(a): the recipe through Trainer.with_data with the cached two-row
+    pool, grad_accum 2, the EMA on eval and keep_best; 2 epochs, then a run
+    resumed from the epoch-1 checkpoint, in the middle of an accumulation."""
+    n_classes = len(RUN_LABELMAP)
+    steps = len(train_ds) // batch
+    evals = -(-len(test_ds) // batch)
+    opts = dict(cache_backbone=True, cache_backbone_store="auto", augment_hflip=True,
+                grad_accum=2, ema_decay=0.999, ema_eval=True, keep_best=True)
+    record = {}
+    with tempfile.TemporaryDirectory() as workdir:
+        run1 = os.path.join(workdir, "run1")
+        cfg = options_config(2, batch, max_gt, checkpoint_dir=os.path.join(run1, "ckpt"),
+                             **opts)
+        torch.cuda.reset_peak_memory_stats()
+        trainer, banner = captured(lambda: RecipePool.with_data(
+            cfg, train_ds, test_ds, RUN_LABELMAP, run1, device="cuda"))
+        pool_gb, budget_gb = trainer.pool_bytes / 1e9, trainer.pool_budget / 1e9
+        check(trainer.act_store == "device" and trainer.pool_rows == 2 * N_IMAGES
+              and "store=device" in banner and f"{budget_gb:.2f} GB auto budget" in banner,
+              f"auto store for {N_IMAGES} x 2 B/16 rows ({pool_gb:.2f} GB, budget "
+              f"{budget_gb:.2f} GB): {trainer.act_store}; banner {banner!r}")
+        rec = StepRecorder(trainer, trainer.ema)
+        evals_seen = {}
+        timed_eval(trainer, evals_seen)
+        metrics, launches, run1_s = drive_run(trainer)
+        n_params = len(trainer.params)
+        rec.check("recipe run 1", n_params, L)
+        check([s["fill"] for s in rec.steps] == [True] * steps + [False] * steps,
+              f"run 1 fills {[s['fill'] for s in rec.steps]}")
+        check(launches == {**dict.fromkeys(KERNELS, 0),
+                           "pk_fwd": (2 * (L - 1) + 1) * steps + steps + 2 * L * evals,
+                           "pk_bwd": 2 * steps}, f"recipe run 1: {launches} launches")
+        # the stored rows of the first filled batch against a fresh prefix of
+        # its pixels as they are (rows 2i) and mirrored (rows 2i + 1)
+        idxs, image = rec.first_fill
+        S = trainer.model_cfg.vision.image_size
+        image = image.reshape(len(idxs), S, S, 3)
+        with torch.no_grad():
+            for flipped in (0, 1):
+                px = normalize_image(image.flip(2) if flipped else image)
+                fresh = owlvit.embed_prefix(trainer.model, trainer.model_cfg, px)
+                stored = trainer.pool_gather(torch.from_numpy(2 * idxs + flipped).cuda())
+                check(torch.equal(stored, fresh),
+                      f"pool rows 2i+{flipped} differ from a fresh embed_prefix")
+        # evaluate ran on the EMA and left the trained parameters as they were
+        check(all(torch.equal(a, b) for a, b in zip(trainer.params, rec.params)),
+              "evaluate changed the trained parameters")
+        eval_image, packed = evals_seen["first_batch"]
+        check(np.array_equal(eval_image.numpy().reshape(test_ds.images[:batch].shape),
+                             test_ds.images[:batch]), "the eval batch's pixels")
+        with torch.no_grad():
+            for p, e in zip(trainer.params, trainer.ema):
+                p.copy_(e)
+            px = normalize_image(torch.from_numpy(test_ds.images[:batch]).cuda())
+            boxes, sims = owlvit.forward_train(trainer.model, trainer.eval_cfg, px)
+            t_cfg = trainer.cfg.training
+            direct = nms_ops.pack_detections(nms_ops.postprocess(
+                boxes, sims, confidence_threshold=t_cfg.confidence_threshold,
+                iou_threshold=t_cfg.iou_threshold, top_k=t_cfg.top_k)).cpu().numpy()
+            for p, v in zip(trainer.params, rec.params):
+                p.copy_(v)
+        check(np.array_equal(direct, packed),
+              "evaluate's packed detections differ from a direct forward on the EMA")
+        rows = jsonl_rows(run1)
+        check_rows(rows, 2, n_classes)
+        cut = rec.saved.get(steps)
+        check(cut is not None and cut["state"]["mini_step"] == 1,
+              f"the epoch-1 checkpoint (step {steps}) is not in the middle of an accumulation")
+        record["run1"] = {
+            "s": run1_s, "launches": launches, "steps": rec.steps, "val_map": metrics["map"],
+            "epochs": [{k: r[k] for k in ("epoch", "step", "epoch_train_secs",
+                                          "epoch_imgs_per_sec")} for r in rows],
+            "eval_s": evals_seen["eval_s"], "checkpoints": sorted(rec.saved),
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del trainer, rec.trainer, boxes, sims, px, fresh, stored
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # resume from the epoch-1 checkpoint alone: one more epoch
+        run2 = os.path.join(workdir, "run2")
+        os.makedirs(os.path.join(run2, "ckpt"))
+        for d in (f"step_{steps:08d}", f"tree_{steps:08d}"):
+            shutil.copytree(os.path.join(run1, "ckpt", d), os.path.join(run2, "ckpt", d))
+        cfg2 = options_config(2, batch, max_gt, checkpoint_dir=os.path.join(run2, "ckpt"),
+                              **opts)
+        torch.cuda.reset_peak_memory_stats()
+        trainer, _ = captured(lambda: RecipePool.with_data(
+            cfg2, train_ds, test_ds, RUN_LABELMAP, run2, device="cuda"))
+        saved = cut["state"]
+        check((trainer.step, trainer.updates, trainer.mini_step)
+              == (saved["step"], saved["updates"], saved["mini_step"]) == (steps, 1, 1),
+              f"resumed at {(trainer.step, trainer.updates, trainer.mini_step)}")
+        check(all(torch.equal(a, b) for a, b in zip(trainer.grad_acc, saved["grad_acc"]))
+              and any(a.abs().max().item() > 0 for a in trainer.grad_acc),
+              "the resumed accumulator differs from the saved one")
+        check(all(torch.equal(a, b) for a, b in zip(trainer.ema, cut["ema"])),
+              "the resumed EMA differs from the saved one")
+        rec2 = StepRecorder(trainer, cut["ema"])
+        _, launches2, run2_s = drive_run(trainer)
+        rec2.check("recipe run 2", n_params, L)
+        check(trainer.step == 2 * steps and [s["fill"] for s in rec2.steps] == [True] * steps,
+              f"run 2 ended at step {trainer.step}, fills {[s['fill'] for s in rec2.steps]}")
+        check(launches2 == {**dict.fromkeys(KERNELS, 0),
+                            "pk_fwd": (2 * (L - 1) + 1) * steps + L * evals, "pk_bwd": steps},
+              f"recipe run 2: {launches2} launches")
+        rows2 = jsonl_rows(run2)
+        check_rows(rows2, 1, n_classes)
+        record["run2"] = {
+            "s": run2_s, "launches": launches2, "steps": rec2.steps,
+            "epochs": [{k: r[k] for k in ("epoch", "step", "epoch_train_secs",
+                                          "epoch_imgs_per_sec")} for r in rows2],
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del trainer, rec2.trainer
+        gc.collect()
+    torch.cuda.empty_cache()
+    total = {k: launches[k] + launches2[k] for k in KERNELS}
+    return record, {"pool_gb": pool_gb, "budget_gb": budget_gb,
+                    "banner": banner.strip().splitlines()[-1]}, total
+
+
+def b16_trainer(batch, max_gt, n_classes, *, model_kw=None, n_images=None, **training):
+    """A B/16 bf16 Trainer from seed 0 with the recipe's optimizer."""
+    m = {"trainable_last_k": 1, **(model_kw or {})}
+    config = Config(DataConfig(max_gt=max_gt),
+                    TrainingConfig(**{"learning_rate": 3e-6, "weight_decay": 0.1,
+                                      "batch_size": batch, "checkpoint_dir": None,
+                                      "seed": 0, **training}),
+                    ModelConfig(name="b16", dtype="bfloat16", **m))
+    mcfg = get_config("b16")
+    model = owlvit.init(mcfg, torch.Generator().manual_seed(0), num_queries=3 * n_classes,
+                        device="cuda")
+    return Trainer(config, model, n_classes, steps_per_epoch=2,
+                   class_weights=np.linspace(0.5, 1.5, n_classes, dtype=np.float32),
+                   device="cuda", n_images=n_images)
+
+
+def counted_step(trainer, batch):
+    """One train_step from launch counts 0 -> (terms, launches, wall ms,
+    peak GB above the memory held before it)."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    terms = trainer.train_step(dict(batch))
+    torch.cuda.synchronize()
+    return (terms, read_counts(), (time.perf_counter() - t0) * 1e3,
+            torch.cuda.max_memory_allocated() / 1e9, (torch.cuda.max_memory_allocated() - held) / 1e9)
+
+
+def hflip_cached_vs_uncached(batch, max_gt, n_classes, L, S):
+    """(b): one cached and one uncached hflip step from the same state with
+    the same Philox flips."""
+    rng = np.random.default_rng(7)
+    n_images = 2 * batch
+    data = train_batch(rng, batch, max_gt, S, n_classes)
+    data["indices"] = rng.choice(n_images, batch, replace=False)
+    cached = b16_trainer(batch, max_gt, n_classes, cache_backbone=True, augment_hflip=True,
+                         n_images=n_images)
+    plain = b16_trainer(batch, max_gt, n_classes, augment_hflip=True)
+    flips = plain._sample_flips(batch)
+    check(np.array_equal(flips, cached._sample_flips(batch)) and flips.any() and not flips.all(),
+          f"flips {flips.astype(int).tolist()}")
+    prefix = {}
+    hook = plain.model.vision.layers[L - 1].register_forward_pre_hook(
+        lambda mod, args: prefix.setdefault("acts", args[0].detach().clone()))
+    terms_u, launches_u, _, _, _ = counted_step(plain, data)
+    hook.remove()
+    terms_c, launches_c, _, _, _ = counted_step(cached, data)
+    check(launches_u == {**dict.fromkeys(KERNELS, 0), "pk_fwd": L, "pk_bwd": 1}
+          and launches_c == {**dict.fromkeys(KERNELS, 0), "pk_fwd": 2 * (L - 1) + 1,
+                             "pk_bwd": 1},
+          f"hflip steps: uncached {launches_u}, cached {launches_c}")
+    rows = torch.from_numpy(2 * data["indices"] + flips).cuda()
+    with torch.no_grad():
+        stored = cached.pool_gather(rows)
+    check(torch.equal(stored, prefix["acts"]),
+          "the stored rows of the flips differ from the uncached step's prefix")
+    rel = np.abs(terms_c - terms_u) / np.abs(terms_u)
+    check(np.isfinite(terms_c).all() and rel.max() <= TOL_HFLIP_TERMS,
+          f"cached vs uncached hflip terms: {terms_c.tolist()} vs {terms_u.tolist()}")
+    out = {"flips": int(flips.sum()), "terms_cached": terms_c.tolist(),
+           "terms_uncached": terms_u.tolist(), "terms_max_rel": rel.max().item(),
+           "terms_equal": bool(np.array_equal(terms_c, terms_u)), "rows_bit_equal": True,
+           "launches_cached": launches_c, "launches_uncached": launches_u}
+    total = {k: launches_u[k] + launches_c[k] for k in KERNELS}
+    del cached, plain, stored, prefix
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, total
+
+
+def grads_of(trainer):
+    return [p.grad.detach().clone() for p in trainer.params]
+
+
+def remat_steps(batch, max_gt, n_classes, L, S):
+    """(c): trainable_last_k 12, uncached: 2 steps with remat off and 2 on,
+    each pair from the same state (the off trainer's), the off step repeated
+    for the dq spread; then one remat step under OWLVIT_FUSED_LN=1."""
+    rng = np.random.default_rng(9)
+    batches = [train_batch(rng, batch, max_gt, S, n_classes) for _ in range(2)]
+    off = b16_trainer(batch, max_gt, n_classes, model_kw={"trainable_last_k": L})
+    on = b16_trainer(batch, max_gt, n_classes, model_kw={"trainable_last_k": L, "remat": True})
+    check(on.model_cfg.remat and not off.model_cfg.remat, "remat settings")
+    steps, total = [], dict.fromkeys(KERNELS, 0)
+    for b in batches:
+        start = copy.deepcopy(off.state())
+        t_off, l_off, w_off, peak_off, act_off = counted_step(off, b)
+        g_off = grads_of(off)
+        after = copy.deepcopy(off.state())
+        off.load_state(copy.deepcopy(start))
+        t_rep, l_rep, _, _, _ = counted_step(off, b)
+        g_rep = grads_of(off)
+        off.load_state(after)
+        on.load_state(copy.deepcopy(start))
+        t_on, l_on, w_on, peak_on, act_on = counted_step(on, b)
+        g_on = grads_of(on)
+        every = range(len(g_off))
+        rec = {"terms_off": t_off.tolist(), "terms_on": t_on.tolist(),
+               "terms_equal": bool(np.array_equal(t_on, t_off)),
+               "repeat_terms_equal": bool(np.array_equal(t_rep, t_off)),
+               "grad_l2_rel": l2_rel(g_on, g_off, every),
+               "repeat_grad_l2_rel": l2_rel(g_rep, g_off, every),
+               "launches_off": l_off, "launches_on": l_on, "wall_ms_off": w_off,
+               "wall_ms_on": w_on, "peak_gb_off": peak_off, "peak_gb_on": peak_on,
+               "step_peak_gb_off": act_off, "step_peak_gb_on": act_on}
+        check(l_off == {**dict.fromkeys(KERNELS, 0), "pk_fwd": L, "pk_bwd": L}
+              and l_on == {**dict.fromkeys(KERNELS, 0), "pk_fwd": 2 * L, "pk_bwd": L},
+              f"remat launches: off {l_off}, on {l_on}")
+        check(rec["terms_equal"] and rec["repeat_grad_l2_rel"] <= TOL_DQ_SPREAD
+              and rec["grad_l2_rel"] <= TOL_REMAT_VS_SPREAD * rec["repeat_grad_l2_rel"]
+              and peak_on < peak_off, f"remat vs no remat: {rec}")
+        steps.append(rec)
+        total = {k: total[k] + l_off[k] + l_rep[k] + l_on[k] for k in KERNELS}
+        del g_off, g_rep, g_on, start, after
+    del off
+    gc.collect()
+    torch.cuda.empty_cache()
+    with switches(OWLVIT_FUSED_LN="1"):
+        t_f, l_f, w_f, peak_f, _ = counted_step(on, batches[0])
+    check(np.isfinite(t_f).all()
+          and l_f == {**dict.fromkeys(KERNELS, 0), "pk_fwd": 2 * L, "pk_bwd": L,
+                      "add_ln_fwd": 2 * 2 * L, "add_ln_bwd": 2 * L},
+          f"remat under OWLVIT_FUSED_LN=1: {l_f} launches, terms {t_f.tolist()}")
+    fused = {"terms": t_f.tolist(), "launches": l_f, "wall_ms": w_f, "peak_gb": peak_f}
+    total = {k: total[k] + l_f[k] for k in KERNELS}
+    del on
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"steps": steps, "fused_ln": fused}, total
+
+
+def augment_steps(batch, max_gt, n_classes, L, S):
+    """(d): 2 uncached steps with augment (colour 0.4, scale 0.7-1.3), then
+    the same 2 again, each from the state its first run started from."""
+    rng = np.random.default_rng(11)
+    batches = [train_batch(rng, batch, max_gt, S, n_classes) for _ in range(2)]
+    trainer = b16_trainer(batch, max_gt, n_classes, augment=True, aug_color=0.4,
+                          aug_scale_min=0.7, aug_scale_max=1.3)
+    states, first, total = [], [], dict.fromkeys(KERNELS, 0)
+    for b in batches:
+        states.append(copy.deepcopy(trainer.state()))
+        terms, launches, wall, _, _ = counted_step(trainer, b)
+        first.append((terms, wall))
+        total = {k: total[k] + launches[k] for k in KERNELS}
+        check(launches == {**dict.fromkeys(KERNELS, 0), "pk_fwd": L, "pk_bwd": 1},
+              f"augment step: {launches} launches")
+    again = []
+    for state, b in zip(states, batches):
+        trainer.load_state(state)
+        terms, launches, _, _, _ = counted_step(trainer, b)
+        again.append(terms)
+        total = {k: total[k] + launches[k] for k in KERNELS}
+    check(all(np.isfinite(t).all() and np.array_equal(t, a) for (t, _), a in zip(first, again)),
+          f"augment replay: {[t.tolist() for t, _ in first]} vs {[a.tolist() for a in again]}")
+    del trainer, states
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"terms": [t.tolist() for t, _ in first], "wall_ms": [w for _, w in first],
+            "replay_bit_equal": True}, total
+
+
+def kernel_ms(kernels, top):
+    """[(name, ms per step)] of the `top` longest kernels by name, summed
+    over the trace's 2 steps, and their total."""
+    by_name = {}
+    for e in kernels:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] / 1e3 / 2
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return [[n[:120], ms] for n, ms in ranked], sum(by_name.values())
+
+
+def profiled_run(train_ds, test_ds, batch, max_gt, top=12):
+    """(e): a cached run with profile_dir (steps 1-2 of epoch 0, filled
+    steps); the trace's device kernels summed by name per step, all and
+    those of the backward: kernels whose launch (the runtime call with the
+    same correlation id) came from the thread where autograd evaluated
+    its functions (the engine's device thread)."""
+    with tempfile.TemporaryDirectory() as workdir:
+        cfg = options_config(1, batch, max_gt, cache_backbone=True,
+                             cache_backbone_store="device", profile_dir="prof",
+                             profile_steps=2, log_file=None)
+        trainer = Trainer.with_data(cfg, train_ds, test_ds, RUN_LABELMAP, workdir, device="cuda")
+        _, launches, run_s = drive_run(trainer)
+        traces = sorted(os.listdir(os.path.join(workdir, "prof")))
+        check(traces == ["steps_00000001-00000002.trace.json"], f"profile_dir holds {traces}")
+        path = os.path.join(workdir, "prof", traces[0])
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        size_mb = os.path.getsize(path) / 1e6
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    names = {e["name"] for e in kernels}
+    check(any("pk_fwd" in n for n in names) and any("pk_bwd" in n for n in names),
+          f"the trace names no pk_fwd or pk_bwd kernel: {sorted(names)[:20]}")
+    launcher = {e["args"]["correlation"]: e["tid"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    autograd = {e["tid"] for e in events if e.get("cat") == "cpu_op"
+                and e["name"].startswith("autograd::engine::evaluate_function")}
+    backward = [e for e in kernels if launcher.get(e["args"].get("correlation")) in autograd]
+    ranked, busy = kernel_ms(kernels, top)
+    ranked_bwd, busy_bwd = kernel_ms(backward, top)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"trace_mb": size_mb, "run_s": run_s, "kernels_per_step": len(kernels) / 2,
+            "device_busy_ms_per_step": busy, "top_ms_per_step": ranked,
+            "backward_kernels_per_step": len(backward) / 2,
+            "backward_busy_ms_per_step": busy_bwd, "backward_top_ms_per_step": ranked_bwd,
+            "unattributed_kernels": sum(e["args"].get("correlation") not in launcher
+                                        for e in kernels),
+            "launches": launches}, launches
+
+
+def phase_train_options(n_train=96, n_test=32, batch=32, max_gt=16):
+    """The training options at B/16 bf16, batch 32, random weights (seed 0):
+    (a) the hflip recipe run, (b) cached against uncached hflip, (c) remat,
+    (d) augment, (e) profile_dir. Returns the launches of every drive."""
+    mcfg = get_config("b16")
+    L, S = mcfg.vision.num_layers, mcfg.vision.image_size
+    n_classes = len(RUN_LABELMAP)
+    gc.collect()
+    torch.cuda.empty_cache()  # the earlier phases' pools
+    train_ds, test_ds = SmokeSet(n_train, S, max_gt, seed=0), SmokeSet(n_test, S, max_gt, seed=1)
+    t0 = time.perf_counter()
+    recipe, pool, total = hflip_recipe_run(train_ds, test_ds, batch, max_gt, L)
+    emit("train_options", part="a_hflip_recipe", model="b16", dtype="bfloat16", batch=batch,
+         images=[n_train, n_test], grad_accum=2, ema_decay=0.999, pool_rows=2 * N_IMAGES,
+         **pool, **recipe, s=time.perf_counter() - t0)
+    parts = (("b_hflip_cached_vs_uncached", hflip_cached_vs_uncached, (batch, 64, 80, L, S)),
+             ("c_remat", remat_steps, (batch, 64, 80, L, S)),
+             ("d_augment", augment_steps, (batch, 64, 80, L, S)),
+             ("e_profile_dir", profiled_run, (train_ds, test_ds, batch, max_gt)))
+    for name, fn, args in parts:
+        t0 = time.perf_counter()
+        out, launches = fn(*args)
+        emit("train_options", part=name, **out, s=time.perf_counter() - t0)
+        total = {k: total[k] + launches[k] for k in KERNELS}
+    return total
+
+
 def main():
     for name in SWITCHES:  # the default paths run with the switches off
         os.environ.pop(name, None)
@@ -1726,8 +2227,9 @@ def main():
     train_launches = phase_train()
     cached_launches = phase_train_cached()
     run_launches = phase_run()
+    options_launches = phase_train_options()
     launches = {k: sum(run[k] for run in (serve_launches, open_vocab_launches, train_launches,
-                                          cached_launches, run_launches))
+                                          cached_launches, run_launches, options_launches))
                 for k in KERNELS}
     for k in ("transposed_fwd", "transposed_bwd"):  # the drives of the transposed Function
         launches[k] += transposed_launches[k]

@@ -63,7 +63,7 @@ class OwlViTConfig:
     # CUDA tensors, its plain version for CPU tensors); "xla": the plain
     # version on any device.
     attention_impl: str = "auto"
-    remat: bool = False  # not used by the port yet
+    remat: bool = False  # recompute the trained encoder blocks in the backward
     quant_backbone: bool = False  # not ported
     # Only the last k vision layers may take gradients; None = no split.
     trainable_last_k: "int | None" = None

@@ -11,17 +11,20 @@ Attention takes a differentiable kernel path when autograd records the call
 (packed, else hybrid, else transposed, as the JAX package's `attention`
 routes them) and the forward-only kernel wrapper (`pk_fwd`) otherwise.
 `encoder` takes the fused add+LayerNorm branch under OWLVIT_FUSED_LN=1, as
-the JAX package's does. Left out for now: the quantized and fast-softmax
-variants.
+the JAX package's does, and with remat recomputes each block in the
+backward (the JAX package's jax.checkpoint around the block). Left out for
+now: the quantized and fast-softmax variants.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from owlvit_tpu_torch.ops.flash_attention import (
@@ -183,23 +186,44 @@ def fused_ln_enabled() -> bool:
     return os.environ.get("OWLVIT_FUSED_LN", "0") == "1"
 
 
+def _fused_block(block: EncoderBlock, res: torch.Tensor, br: torch.Tensor, *,
+                 impl: str, static_max: Optional[float]):
+    """One block on the pending (res, branch) pair -> the next pair."""
+    xi, y1 = add_ln(res, br, block.ln1)
+    a = block.attn(y1, impl=impl, static_max=static_max)
+    res, y2 = add_ln(xi, a, block.ln2)
+    return res, block.mlp(y2)
+
+
 def encoder(blocks, x: torch.Tensor, *, impl: str = "auto",
-            static_max: Optional[float] = None) -> torch.Tensor:
+            static_max: Optional[float] = None, remat: bool = False) -> torch.Tensor:
     """Run a sequence of EncoderBlocks in order.
 
     With a kernel impl (not "xla") and OWLVIT_FUSED_LN=1, the residual
     stream is carried as a pending (res, branch) pair from (x, 0), so that
     every layer boundary is one fused add+LayerNorm (`add_ln`) instead of
     an add and a LayerNorm: the JAX package's fused branch, the same
-    function up to summation order."""
+    function up to summation order.
+
+    remat, when autograd records the stack: each block runs under
+    torch.utils.checkpoint (non-reentrant), which keeps only its input and
+    runs it again in the backward, the kernels' autograd Functions
+    included (`pk_fwd`, and `add_ln_fwd` in the fused branch, launch twice;
+    the backward reads the recomputed o and lse). The same function, bit
+    for bit: the forward kernels are deterministic."""
+    remat = remat and torch.is_grad_enabled()
+
+    def run(fn, *args):
+        if remat:
+            return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
     if impl != "xla" and fused_ln_enabled():
         res, br = x, torch.zeros_like(x)
         for block in blocks:
-            xi, y1 = add_ln(res, br, block.ln1)
-            a = block.attn(y1, impl=impl, static_max=static_max)
-            res, y2 = add_ln(xi, a, block.ln2)
-            br = block.mlp(y2)
+            res, br = run(functools.partial(_fused_block, block, impl=impl,
+                                            static_max=static_max), res, br)
         return res + br
     for block in blocks:
-        x = block(x, impl=impl, static_max=static_max)
+        x = run(functools.partial(block, impl=impl, static_max=static_max), x)
     return x

@@ -99,7 +99,7 @@ def image_embedder(params: OwlViT, cfg: OwlViTConfig, pixel_values):
         params.vision, cfg.vision, pixel_values,
         dtype=DTYPES[cfg.dtype], attention_impl=cfg.attention_impl,
         trainable_last_k=cfg.trainable_last_k,
-        static_softmax=cfg.static_softmax,
+        static_softmax=cfg.static_softmax, remat=cfg.remat,
     )
     return _merge_feats(params, cfg, last_hidden)
 
@@ -178,7 +178,8 @@ def forward_train_from_prefix(params: OwlViT, cfg: OwlViTConfig, acts):
     itself forward_prefix + forward_tail."""
     last_hidden = vit.forward_tail(params.vision, cfg.vision, acts,
                                    attention_impl=cfg.attention_impl,
-                                   trainable_last_k=cfg.trainable_last_k)
+                                   trainable_last_k=cfg.trainable_last_k,
+                                   remat=cfg.remat)
     feats = _merge_feats(params, cfg, last_hidden)
     return (box_predictor(params, cfg, feats),
             class_predictor_querybank(params, cfg, feats))

@@ -81,28 +81,31 @@ def forward_prefix(params: ViT, cfg: VisionConfig, pixel_values, *,
 
 
 def forward_tail(params: ViT, cfg: VisionConfig, acts, *,
-                 attention_impl: str = "auto", trainable_last_k: int):
-    """The trainable layers[L-k :] over a forward_prefix output."""
+                 attention_impl: str = "auto", trainable_last_k: int,
+                 remat: bool = False):
+    """The trainable layers[L-k :] over a forward_prefix output; remat
+    recomputes each of them in the backward."""
     if trainable_last_k > 0:
         acts = encoder(params.layers[cfg.num_layers - trainable_last_k:], acts,
-                       impl=attention_impl)
+                       impl=attention_impl, remat=remat)
     return acts
 
 
 def forward(params: ViT, cfg: VisionConfig, pixel_values, *,
             dtype=torch.float32, attention_impl: str = "auto",
             trainable_last_k: Optional[int] = None,
-            static_softmax: bool = False):
+            static_softmax: bool = False, remat: bool = False):
     """[B, H, W, 3] -> last_hidden_state [B, 1+P, D] (before post-LN).
 
     trainable_last_k: if set, the first L-k layers run as a frozen prefix
-    (forward_prefix) and the last k as the tail."""
+    (forward_prefix) and the last k as the tail. remat: the layers that
+    take a gradient are recomputed in the backward (layers.encoder)."""
     k = trainable_last_k
     if k is None or k >= cfg.num_layers:
         x = _embed_tokens(params, cfg, pixel_values, dtype)
-        return encoder(params.layers, x, impl=attention_impl)
+        return encoder(params.layers, x, impl=attention_impl, remat=remat)
     acts = forward_prefix(params, cfg, pixel_values, dtype=dtype,
                           attention_impl=attention_impl, trainable_last_k=k,
                           static_softmax=static_softmax)
     return forward_tail(params, cfg, acts, attention_impl=attention_impl,
-                        trainable_last_k=k)
+                        trainable_last_k=k, remat=remat)

@@ -47,23 +47,44 @@ def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 2.0, torch.zeros_like(x), out)
 
 
-def _weight_mat(n_in: int, n_out: int, antialias: bool,
-                device: torch.device) -> torch.Tensor:
-    """[n_in, n_out] fp32 resampling weights of one axis (scale n_out/n_in,
-    no translation), in the JAX function's fp32 arithmetic."""
-    inv_scale = torch.tensor(1.0 / (n_out / n_in), dtype=torch.float32)
-    kernel_scale = (torch.maximum(inv_scale, torch.tensor(1.0)) if antialias
-                    else torch.tensor(1.0))
-    sample_f = (torch.arange(n_out, dtype=torch.float32) + 0.5) * inv_scale - 0.5
-    x = (sample_f[None, :] - torch.arange(n_in, dtype=torch.float32)[:, None]).abs()
-    w = _keys_cubic(x / kernel_scale)
-    total = w.sum(dim=0, keepdim=True)
+def triangle(x: torch.Tensor) -> torch.Tensor:
+    """The linear kernel (JAX's "linear" method): max(0, 1 - |x|)."""
+    return torch.clamp(1.0 - x.abs(), min=0.0)
+
+
+def weight_mat_at(n_in: int, n_out: int, inv_scale: torch.Tensor,
+                  translation: torch.Tensor, kernel, antialias: bool) -> torch.Tensor:
+    """[..., n_in, n_out] fp32 resampling weights of one axis for each of
+    the fp32 inv_scale [...] (input pixels per output pixel) and translation
+    [...] (output pixels), as `jax.image.scale_and_translate` computes them
+    (`compute_weight_mat`): output pixel u samples input position (u + 0.5 -
+    translation) * inv_scale - 0.5; each column normalised to sum to 1; a
+    column whose position lies outside the input is zero (zero fill)."""
+    dev = inv_scale.device
+    inv_scale, translation = inv_scale[..., None], translation[..., None]
+    kernel_scale = (torch.clamp(inv_scale, min=1.0) if antialias
+                    else torch.ones_like(inv_scale))
+    sample_f = ((torch.arange(n_out, dtype=torch.float32, device=dev) + 0.5) * inv_scale
+                - translation * inv_scale - 0.5)
+    src = torch.arange(n_in, dtype=torch.float32, device=dev)[:, None]
+    w = kernel((sample_f[..., None, :] - src).abs() / kernel_scale[..., None])
+    total = w.sum(dim=-2, keepdim=True)
     eps = 1000.0 * float(np.finfo(np.float32).eps)
     w = torch.where(total.abs() > eps,
                     w / torch.where(total != 0, total, torch.ones_like(total)),
                     torch.zeros_like(w))
     inside = (sample_f >= -0.5) & (sample_f <= n_in - 0.5)
-    return torch.where(inside[None, :], w, torch.zeros_like(w)).to(device)
+    return torch.where(inside[..., None, :], w, torch.zeros_like(w))
+
+
+def _weight_mat(n_in: int, n_out: int, antialias: bool,
+                device: torch.device) -> torch.Tensor:
+    """[n_in, n_out] cubic weights of one axis (scale n_out/n_in, no
+    translation; the inverse scale rounded from float64, as
+    `jax.image.resize` passes a Python scale)."""
+    inv_scale = torch.tensor(1.0 / (n_out / n_in), dtype=torch.float32)
+    return weight_mat_at(n_in, n_out, inv_scale, torch.zeros(()), _keys_cubic,
+                         antialias).to(device)
 
 
 def resize_image(image: torch.Tensor, size: int = DEFAULT_SIZE,

@@ -98,6 +98,41 @@ print("ok")
 """
 
 
+_OPTIONS_CODE = """
+import sys
+
+import pytest
+sys.modules["jax"] = None
+import numpy as np
+import torch
+from owlvit_tpu_torch.models import get_config, owlvit
+from owlvit_tpu_torch.ops import augment  # noqa: F401
+from owlvit_tpu_torch.train import Trainer
+from owlvit_tpu_torch.utils.config import Config, DataConfig, ModelConfig, TrainingConfig
+
+rng = np.random.default_rng(0)
+batch = {"image": rng.integers(0, 255, (2, 96 * 96 * 3), dtype=np.uint8),
+         "labels": np.array([[0, 2], [1, 0]]), "boxes": np.array([[[.1, .1, .5, .5]] * 2] * 2),
+         "gt_mask": np.array([[True, True], [True, False]]), "indices": np.array([3, 1])}
+for training, model_kw in (
+        (dict(grad_accum=2, ema_decay=0.9, augment=True, aug_color=0.3,
+              aug_scale_min=0.8, aug_scale_max=1.2), dict(remat=True, trainable_last_k=2)),
+        (dict(augment_hflip=True, cache_backbone=True, ema_decay=0.9), {})):
+    cfg = Config(DataConfig(), TrainingConfig(batch_size=2, **training),
+                 ModelConfig(name="tiny", **{"trainable_last_k": 1, **model_kw}))
+    model = owlvit.init(get_config("tiny"), torch.Generator().manual_seed(0), num_queries=9)
+    trainer = Trainer(cfg, model, 3, steps_per_epoch=1, device="cpu", n_images=4)
+    for _ in range(2):
+        terms = trainer.train_step(dict(batch))
+        assert np.isfinite(terms).all(), terms
+    assert trainer.updates == (1 if training.get("grad_accum") else 2), trainer.updates
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("owlvit_tpu", "jaxlib", "flax", "optax"))
+assert not leaked, leaked
+print("ok")
+"""
+
+
 def _run(code, cwd):
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=cwd,
@@ -118,6 +153,12 @@ def test_port_trains_cached_without_jax(tmp_path):
     """A cached train_step, device pool (activation dtype and int8) and disk
     store, a batch that fills its rows and one that reads them back."""
     _run(_CACHED_TRAIN_CODE, tmp_path)
+
+
+def test_port_trains_with_options_without_jax(tmp_path):
+    """grad_accum, the EMA, augment and remat on the uncached step; the
+    two-row hflip pool on the cached one."""
+    _run(_OPTIONS_CODE, tmp_path)
 
 
 _RUN_CODE = """

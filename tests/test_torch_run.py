@@ -349,15 +349,29 @@ def test_disk_store_run_equals_device_store(tmp_path):
 
 
 @pytest.mark.parametrize("training,match", [
-    ({"grad_accum": 2}, "grad_accum"), ({"ema_decay": 0.9}, "ema_decay"),
-    ({"augment": True}, "augment"), ({"augment_hflip": True}, "augment_hflip"),
-    ({"mesh_data": 2}, "mesh"), ({"stage_pixels": "on"}, "stage_pixels"),
-    ({"profile_dir": "prof"}, "profile_dir")])
+    ({"mesh_data": 2}, "mesh"), ({"stage_pixels": "on"}, "stage_pixels")])
 def test_unported_settings_refused(tmp_path, training, match):
     with pytest.raises(NotImplementedError, match=match):
         Trainer.from_config(_cfg(str(tmp_path), **training), workdir=str(tmp_path),
                             device="cpu")
     assert not os.path.exists(os.path.join(str(tmp_path), "synth"))  # refused first
+
+
+@pytest.mark.parametrize("training,match,first", [
+    ({"grad_accum": 0}, "grad_accum must be >= 1", True),
+    ({"ema_decay": -0.1}, r"ema_decay must be in \(0, 1\)", True),
+    ({"augment": True, "cache_backbone": True}, "mutually exclusive", True),
+    ({"augment": True, "augment_hflip": True}, "augment_hflip", True),
+    # the store resolves once the train set is known
+    ({"augment_hflip": True, "cache_backbone": True, "cache_backbone_store": "disk"},
+     "device store", False)])
+def test_invalid_settings_refused(tmp_path, training, match, first):
+    """The JAX package's refusals, through from_config; all but the store's
+    come before the synthetic set is written."""
+    with pytest.raises(ValueError, match=match):
+        Trainer.from_config(_cfg(str(tmp_path), **training), workdir=str(tmp_path),
+                            device="cpu")
+    assert os.path.exists(os.path.join(str(tmp_path), "synth")) != first
 
 
 def test_stage_pixels_auto_and_off_run(tmp_path):

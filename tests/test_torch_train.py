@@ -150,19 +150,34 @@ def test_lr_schedule_equals_optax(runs, schedule, warmup):
                                    err_msg=f"step {step}")
 
 
-@pytest.mark.parametrize("field,value", [
-    ("grad_accum", 2), ("ema_decay", 0.99), ("augment", True),
-    ("augment_hflip", True), ("mesh_data", 2),
-    ("stage_pixels", "on"), ("profile_dir", "prof")])
-def test_unported_options_refused(field, value):
+def _tiny_trainer(training: dict):
     cfg = tconfig.Config(data=tconfig.DataConfig(),
-                         training=tconfig.TrainingConfig(**{field: value}),
+                         training=tconfig.TrainingConfig(**training),
                          model=tconfig.ModelConfig(name="tiny"))
     from owlvit_tpu_torch.models import owlvit
 
     model = owlvit.init(get_config("tiny"), torch.Generator().manual_seed(0), num_queries=9)
+    return Trainer(cfg, model, 3, steps_per_epoch=1, device="cpu", n_images=8)
+
+
+@pytest.mark.parametrize("field,value", [("mesh_data", 2), ("stage_pixels", "on")])
+def test_unported_options_refused(field, value):
     with pytest.raises(NotImplementedError, match=field):
-        Trainer(cfg, model, 3, steps_per_epoch=1, device="cpu")
+        _tiny_trainer({field: value})
+
+
+@pytest.mark.parametrize("training,match", [
+    ({"grad_accum": 0}, "grad_accum must be >= 1"),
+    ({"ema_decay": 1.5}, r"ema_decay must be in \(0, 1\)"),
+    ({"augment": True, "cache_backbone": True}, "mutually exclusive"),
+    ({"augment": True, "augment_hflip": True}, "augment_hflip"),
+    ({"augment_hflip": True, "cache_backbone": True, "cache_backbone_store": "disk"},
+     "device store")])
+def test_invalid_options_refused(training, match):
+    """The JAX package's refusals (its tests/test_grad_accum.py,
+    test_augment.py, test_augment_hflip_cached.py)."""
+    with pytest.raises(ValueError, match=match):
+        _tiny_trainer(training)
 
 
 def test_partition_params_full_finetune():
