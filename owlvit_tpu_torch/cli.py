@@ -1,7 +1,8 @@
 """Command-line interface of the port (counterpart of owlvit_tpu/cli.py).
 
     python -m owlvit_tpu_torch.cli train --config config.yaml [--device cuda|cpu]
-    python -m owlvit_tpu_torch.cli eval --config config.yaml [--save-detections d.json]
+    python -m owlvit_tpu_torch.cli eval --config config.yaml [--save-detections d.json] \
+        [--from-export det.pt2 [--export-params det.pt2.npz]]
     python -m owlvit_tpu_torch.cli infer --config config.yaml --image img.png \
         [--queries "a cat" "a dog" | --query-image exemplar.png]
     python -m owlvit_tpu_torch.cli bulk-infer --config config.yaml \
@@ -9,11 +10,14 @@
     python -m owlvit_tpu_torch.cli serve --config config.yaml --port 8750 [--one-shot]
     python -m owlvit_tpu_torch.cli make-synthetic --root /tmp/synth
     python -m owlvit_tpu_torch.cli make-coco-subset --config config.yaml
+    python -m owlvit_tpu_torch.cli export --config config.yaml --out det.pt2 \
+        [--batch-size 8] [--weightless] [--ema]
     python -m owlvit_tpu_torch.cli convert --model b32 --src <hf-name-or-dir> --out p.npz
 
-train, eval, infer, bulk-infer and serve run on the card unless --device
-cpu is given, and raise where there is no card. Not ported yet: export, and
-eval's --from-export (use the JAX package's CLI for them).
+train, eval, infer, bulk-infer, serve and export run on the card unless
+--device cpu is given, and raise where there is no card. An exported
+artifact (torch.export) calls the port's custom ops, so loading it needs
+this package (train/export.py).
 """
 
 from __future__ import annotations
@@ -61,7 +65,22 @@ def _cmd_train(args):
 
 
 def _cmd_eval(args):
-    metrics = _trainer(args).evaluate(save_detections=args.save_detections)
+    trainer = _trainer(args)
+    infer_fn = None
+    if args.from_export:
+        # eval through the loaded serving artifact: the same protocol, so
+        # its mAP must reproduce the direct eval's
+        from owlvit_tpu_torch.train.export import load_exported, load_exported_weightless
+
+        if args.export_params:
+            from owlvit_tpu_torch.models.convert import load_params
+
+            infer_fn = load_exported_weightless(
+                args.from_export, load_params(args.export_params), device=trainer.device)
+        else:
+            infer_fn = load_exported(args.from_export)
+        print(f"eval through exported artifact: {args.from_export}", flush=True)
+    metrics = trainer.evaluate(infer_fn=infer_fn, save_detections=args.save_detections)
     print(json.dumps({k: (v.tolist() if hasattr(v, "tolist") else v)
                       for k, v in metrics.items()}, indent=2))
 
@@ -272,6 +291,36 @@ def _cmd_make_coco_subset(args):
                       "counts": out["counts"]}, indent=2))
 
 
+def _cmd_export(args):
+    """Export the (optionally fine-tuned) detector as a serving artifact."""
+    import torch
+
+    from owlvit_tpu_torch.models.convert import save_params, to_jax_tree
+    from owlvit_tpu_torch.train.export import (export_detector,
+                                               export_detector_weightless, save_exported)
+
+    trainer = _trainer(args)
+    if args.ema:
+        if trainer.ema is None:
+            raise SystemExit(
+                "--ema needs training.ema_decay set in the config (the EMA "
+                "tree is restored from the checkpoint next to the trainer state)")
+        with torch.no_grad():  # the EMA into the trainable parameters
+            for p, e in zip(trainer.params, trainer.ema):
+                p.copy_(e)
+    model, mcfg = trainer.model, trainer.model_cfg
+    if args.weightless:
+        blob = export_detector_weightless(model, mcfg, batch_size=args.batch_size)
+        # the artifact is graph-only: the current (fine-tuned) weights go
+        # beside it, since binding a stale npz would serve other weights
+        save_params(args.out + ".npz", to_jax_tree(model))
+        print(f"wrote {args.out}.npz (weights for load_exported_weightless)")
+    else:
+        blob = export_detector(model, mcfg, batch_size=args.batch_size)
+    save_exported(args.out, blob)
+    print(f"wrote {args.out} ({len(blob)} bytes)")
+
+
 def _cmd_convert(args):
     """Offline HF -> npz conversion (transformers is needed here only)."""
     from transformers import OwlViTForObjectDetection
@@ -298,6 +347,11 @@ def main(argv=None):
         sp = sub.add_parser(name)
         common(sp)
         if name == "eval":
+            sp.add_argument("--from-export", default=None,
+                            help="serving artifact: eval through it (its "
+                                 "batch size must be the eval batch size)")
+            sp.add_argument("--export-params", default=None,
+                            help="npz for a --weightless artifact")
             sp.add_argument("--save-detections", default=None,
                             help="write COCO-results-style JSON of every "
                                  "kept detection (external re-scoring)")
@@ -348,6 +402,16 @@ def main(argv=None):
     sp.add_argument("--out-dir", default="data")
     sp.add_argument("--seed", type=int, default=0)
     sp.set_defaults(fn=_cmd_make_coco_subset)
+
+    sp = sub.add_parser("export")
+    common(sp)
+    sp.add_argument("--out", required=True)
+    sp.add_argument("--batch-size", type=int, default=1)
+    sp.add_argument("--weightless", action="store_true",
+                    help="export the graph only; bind weights at load time")
+    sp.add_argument("--ema", action="store_true",
+                    help="export the EMA weights (training.ema_decay)")
+    sp.set_defaults(fn=_cmd_export)
 
     sp = sub.add_parser("convert")
     sp.add_argument("--model", default="b32")

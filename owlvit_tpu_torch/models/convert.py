@@ -11,7 +11,8 @@ the stacked encoder layers carry a leading [L] axis.
 
 `load_tree` maps such a tree onto a module by name: `kernel` -> `weight`
 (transposed to nn.Linear's [d_out, d_in]), `scale` -> `weight`, and a
-`layers` subtree with a leading [L] axis -> `layers.0`, `layers.1`, ...
+`layers` subtree with a leading [L] axis -> `layers.0`, `layers.1`, ...;
+`to_jax_tree` maps a module back.
 """
 
 from __future__ import annotations
@@ -175,6 +176,35 @@ def _state_dict(tree: dict) -> dict:
         else:
             sd[".".join([*parts[:-1], name])] = arr
     return {k: torch.tensor(v) for k, v in sd.items()}  # copies: jax arrays are read-only
+
+
+def to_jax_tree(module: torch.nn.Module) -> dict:
+    """The inverse of `load_tree`: a module's parameters (its state_dict) as
+    the JAX parameter tree of fp32 numpy arrays, `weight` -> `kernel`
+    ([d_in, d_out]) on Linear layers and -> `scale` on LayerNorms, the
+    `layers.N` entries stacked on a leading [L] axis."""
+    from .layers import LayerNorm, Linear
+
+    leaf = {Linear: "kernel", LayerNorm: "scale"}
+    flat, stacks = {}, {}
+    for key, t in module.state_dict().items():
+        owner, name = key.rpartition(".")[::2]
+        arr = t.detach().float().cpu().numpy()
+        kind = leaf.get(type(module.get_submodule(owner))) if owner else None
+        if kind and name == "weight":
+            name = kind
+            if kind == "kernel":
+                arr = np.swapaxes(arr, -1, -2)
+        parts = [*owner.split("."), name] if owner else [name]
+        if "layers" in parts:
+            i = parts.index("layers")
+            path = _SEP.join([*parts[:i + 1], *parts[i + 2:]])
+            stacks.setdefault(path, {})[int(parts[i + 1])] = arr
+        else:
+            flat[_SEP.join(parts)] = arr
+    for path, rows in stacks.items():
+        flat[path] = np.stack([rows[n] for n in range(len(rows))])
+    return unflatten(flat)
 
 
 def load_tree(module: torch.nn.Module, tree: dict) -> torch.nn.Module:

@@ -97,7 +97,8 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor, *, impl: str = "auto",
                 static_max: Optional[float] = None,
-                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                bias: Optional[torch.Tensor] = None,
+                bwd_hint: Optional[str] = None) -> torch.Tensor:
         """impl "xla": the plain version on any device, under PyTorch's own
         autograd; otherwise the kernels (CUDA kernels on CUDA tensors, plain
         versions on CPU). bias: an additive fp32 [B, 1|H, S, S] on the
@@ -109,8 +110,9 @@ class Attention(nn.Module):
         `hybrid_supported`, else the transposed `flash_attention`; a call it
         does not record takes `pk_fwd`. The fixed shift (static_max) is for
         forward-only calls and raises on a recorded one, as the JAX package
-        keeps it out of every grad graph. All S tokens are real: the token
-        axis is never padded."""
+        keeps it out of every grad graph. bwd_hint: the packed backward's
+        mode ("fused" or "both", `pk_bwd_mode`; `encoder` sets it). All S
+        tokens are real: the token axis is never padded."""
         B, S, D = x.shape
         H = self.num_heads
         scale = (D // H) ** -0.5
@@ -125,7 +127,8 @@ class Attention(nn.Module):
             o, _ = pk_fwd_plain(q, k, v, scale=scale, num_heads=self.num_heads,
                                 static_max=static_max)
         elif recorded and packed_supported(H, D // H, D):
-            o = flash_attention_packed(q, k, v, scale=scale, num_heads=H)
+            o = flash_attention_packed(q, k, v, scale=scale, num_heads=H,
+                                       bwd_hint=bwd_hint)
         elif recorded and hybrid_supported(H, D // H, D):
             o = flash_attention_hybrid(q, k, v, scale=scale, num_heads=H)
         elif recorded:
@@ -174,9 +177,10 @@ class EncoderBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, *, impl: str = "auto",
                 static_max: Optional[float] = None,
-                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                bias: Optional[torch.Tensor] = None,
+                bwd_hint: Optional[str] = None) -> torch.Tensor:
         x = x + self.attn(self.ln1(x), impl=impl, static_max=static_max,
-                          bias=bias)
+                          bias=bias, bwd_hint=bwd_hint)
         return x + self.mlp(self.ln2(x))
 
 
@@ -188,9 +192,11 @@ def fused_ln_enabled() -> bool:
 
 def _fused_block(block: EncoderBlock, res: torch.Tensor, br: torch.Tensor, *,
                  impl: str, static_max: Optional[float]):
-    """One block on the pending (res, branch) pair -> the next pair."""
+    """One block on the pending (res, branch) pair -> the next pair. Its
+    attention's backward is the split pair whatever the depth, as the JAX
+    package's fused branch hints "both"."""
     xi, y1 = add_ln(res, br, block.ln1)
-    a = block.attn(y1, impl=impl, static_max=static_max)
+    a = block.attn(y1, impl=impl, static_max=static_max, bwd_hint="both")
     res, y2 = add_ln(xi, a, block.ln2)
     return res, block.mlp(y2)
 
@@ -204,6 +210,11 @@ def encoder(blocks, x: torch.Tensor, *, impl: str = "auto",
     every layer boundary is one fused add+LayerNorm (`add_ln`) instead of
     an add and a LayerNorm: the JAX package's fused branch, the same
     function up to summation order.
+
+    The packed attention backward's hint, as the JAX package's `encoder`
+    passes it: "fused" for stacks of 2 layers or fewer (which it unrolls),
+    "both" (the split pair) for longer ones (which it scans) and on the
+    fused add+LayerNorm branch at any depth.
 
     remat, when autograd records the stack: each block runs under
     torch.utils.checkpoint (non-reentrant), which keeps only its input and
@@ -224,6 +235,8 @@ def encoder(blocks, x: torch.Tensor, *, impl: str = "auto",
             res, br = run(functools.partial(_fused_block, block, impl=impl,
                                             static_max=static_max), res, br)
         return res + br
+    hint = "fused" if len(blocks) <= 2 else "both"
     for block in blocks:
-        x = run(functools.partial(block, impl=impl, static_max=static_max), x)
+        x = run(functools.partial(block, impl=impl, static_max=static_max,
+                                  bwd_hint=hint), x)
     return x

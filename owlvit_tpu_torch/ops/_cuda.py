@@ -41,6 +41,10 @@ _SIGNATURES = {
     "owlvit_pk_fwd": [_P] * 5 + [_I] * 5 + [_F, _I, _F, _I, _P],
     # q k v o lse do delta dq dk dv | B S H hd valid_len | scale dtype stream
     "owlvit_pk_bwd": [_P] * 10 + [_I] * 5 + [_F, _I, _P],
+    # q k v o lse do delta dq | B S H hd valid_len | scale dtype stream
+    "owlvit_pk_dq": [_P] * 8 + [_I] * 5 + [_F, _I, _P],
+    # q k v lse do delta dk dv | B S H hd valid_len | scale dtype stream
+    "owlvit_pk_dkv": [_P] * 8 + [_I] * 5 + [_F, _I, _P],
     # x h scale bias r y | N D | eps dtype stream
     "owlvit_add_ln_fwd": [_P] * 6 + [_I] * 2 + [_F, _I, _P],
     # r dy dr scale g part_scale part_bias dscale dbias | N D blocks | eps dtype stream
@@ -72,14 +76,13 @@ def library_name(csrc: Path, flags: tuple) -> str:
     return f"libowlvit_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build(extra_flags: tuple = ()) -> Path:
+def build() -> Path:
     """Compile csrc/*.cu with nvcc for sm_90a into one shared library under
     _build/, named by `library_name`; reuse it if present. One nvcc per
     source, all started together, then one link. nvcc's report (registers,
-    shared memory, spills) goes beside it as .log. extra_flags (e.g. a -D of
-    a timing-only variant) make another library beside the default one."""
+    shared memory, spills) goes beside it as .log."""
     srcs = sorted(CSRC.glob("*.cu"))
-    flags = (*NVCC_FLAGS, *extra_flags)
+    flags = NVCC_FLAGS
     out = BUILD_DIR / library_name(CSRC, flags)
     if out.exists():
         return out

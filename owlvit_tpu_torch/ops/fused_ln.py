@@ -12,7 +12,9 @@ only r and scale are saved, and returns the same g for x and h.
 
 `add_ln_fwd` and `add_ln_bwd` are the wrappers: a CPU tensor goes to the
 plain version, a CUDA tensor to the kernels in ../csrc/fused_ln.cu (built
-and bound by ops/_cuda.py at first use), or the wrapper raises. Unlike the
+and bound by ops/_cuda.py at first use), or the wrapper raises.
+`add_ln_fwd` is the custom op `owlvit::add_ln_fwd` with a fake
+implementation, so that torch.export traces it (train/export.py). Unlike the
 JAX wrapper, nothing pads N to a block multiple: the kernels take ragged N.
 """
 
@@ -127,13 +129,22 @@ def bwd_smem_bytes(D: int, dtype: torch.dtype, device) -> int:
 
 
 def add_ln_fwd(x, h, scale, bias, eps: float):
-    """(r, y) = (x + h, LN(x + h) * scale + bias) over [..., D]. CPU tensors
-    run `add_ln_fwd_plain`; CUDA tensors run the kernel, and
+    """(r, y) = (x + h, LN(x + h) * scale + bias) over [..., D]. It calls the
+    custom op `owlvit::add_ln_fwd`, which torch.export traces as one node:
+    CPU tensors run `add_ln_fwd_plain`; CUDA tensors run the kernel, and
     `add_ln_fwd.launches` counts each launch."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"add_ln_fwd runs on cpu or cuda tensors, got {x.device}")
+    return torch.ops.owlvit.add_ln_fwd(x, h, scale, bias, float(eps))
+
+
+@torch.library.custom_op("owlvit::add_ln_fwd", mutates_args=())
+def _add_ln_fwd_op(x: torch.Tensor, h: torch.Tensor, scale: torch.Tensor,
+                   bias: torch.Tensor, eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """`add_ln_fwd`'s implementation: the plain version on the CPU, the
+    kernel (counted) on the card."""
     if x.device.type == "cpu":
         return add_ln_fwd_plain(x, h, scale, bias, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"add_ln_fwd runs on cpu or cuda tensors, got {x.device}")
     N, D = _rows("add_ln_fwd", x, x=x, h=h)
     sc, bi = _param(scale, D, x.device), _param(bias, D, x.device)
     r, y = torch.empty_like(x), torch.empty_like(x)
@@ -142,6 +153,11 @@ def add_ln_fwd(x, h, scale, bias, eps: float):
            float(eps), DTYPE_CODE[x.dtype])
     add_ln_fwd.launches += 1
     return r, y
+
+
+@_add_ln_fwd_op.register_fake
+def _add_ln_fwd_fake(x, h, scale, bias, eps):
+    return torch.empty_like(x), torch.empty_like(x)
 
 
 add_ln_fwd.launches = 0

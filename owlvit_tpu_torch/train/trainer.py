@@ -948,19 +948,30 @@ class Trainer:
         (xyxy in [0, 1], score, class, valid), in one device read: the eval
         forward (every layer, no gradient, per-row softmax max) +
         postprocess + pack_detections."""
-        t = self.cfg.training
         with torch.no_grad():
             px = normalize_image(self._image({"image": image}))
-            boxes, sims = owlvit.forward_train(self.model, self.eval_cfg, px)
+            return self._pack(*owlvit.forward_train(self.model, self.eval_cfg, px))
+
+    def _pack(self, boxes, sims) -> np.ndarray:
+        """postprocess + pack_detections of a forward's (boxes, sims) ->
+        packed detections [B, K, 7] on the host."""
+        t = self.cfg.training
+        with torch.no_grad():
             out = nms_ops.postprocess(
                 boxes, sims, confidence_threshold=t.confidence_threshold,
                 iou_threshold=t.iou_threshold, top_k=t.top_k)
             return nms_ops.pack_detections(out).cpu().numpy()
 
-    def evaluate(self, epoch: Optional[int] = None,
+    def evaluate(self, epoch: Optional[int] = None, infer_fn=None,
                  save_detections: Optional[str] = None) -> dict:
         """Eval epoch over the test set -> the COCO mAP dict, on the EMA
         weights with ema_eval (see _eval_weights).
+
+        infer_fn: a callable uint8 images [B, S, S, 3] (on the trainer's
+        device) -> (boxes, sims), e.g. a loaded export artifact
+        (train/export.py). The same postprocess, packing and metric run on
+        its outputs, so `cli eval --from-export` shows that the served
+        artifact reproduces the eval; the EMA swap applies only without it.
 
         save_detections: a path; writes every kept detection in
         COCO-results style ({image_id, image_path, category_id,
@@ -982,10 +993,18 @@ class Trainer:
         batches = prefetch_to_device(
             it, device=self.device,
             host_keys=_META_KEYS + ("boxes", "labels", "gt_mask"))
-        with self._eval_weights():
+        if infer_fn is None:
+            weights, packed_fn = self._eval_weights(), self.eval_batch
+        else:
+            weights = contextlib.nullcontext()
+
+            def packed_fn(image):
+                return self._pack(*infer_fn(self._image({"image": image})))
+
+        with weights:
             for bi, batch in enumerate(batches):
                 paths = batch.pop("paths", None)
-                packed = self.eval_batch(batch["image"])
+                packed = packed_fn(batch["image"])
                 widths, heights = batch["width"], batch["height"]
                 gt_boxes, gt_labels, gt_mask = batch["boxes"], batch["labels"], batch["gt_mask"]
                 for i, valid in enumerate(batch["image_valid"]):

@@ -28,7 +28,7 @@ def test_library_name_follows_every_input(tmp_path, edit):
     elif edit == "new_header":
         (csrc / "more.cuh").write_text("// another shared header\n")
     else:
-        flags = (*flags, "-DOWLVIT_PK_BWD_NO_DQ_RED")
+        flags = (*flags, "-lineinfo")
     assert _cuda.library_name(csrc, flags) != before
 
 

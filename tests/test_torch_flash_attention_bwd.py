@@ -1,7 +1,11 @@
 """Port: the plain attention backward against `jax.vjp` of the JAX package's
 `flash_attention_packed` (the Pallas backward in interpret mode, in its
-modes "fused" and "both"), the autograd Function on CPU against PyTorch's
-autograd through the plain forward, and the wrapper's routing.
+modes "fused" and "both", against the port's `pk_bwd` and `pk_bwd_split`),
+the autograd Function on CPU against PyTorch's autograd through the plain
+forward, and the routing: the backward mode (`pk_bwd_mode` against
+`_pk_bwd_mode`), the hint `layers.encoder` passes (against what the JAX
+package's `encoder` passes), the transposed and hybrid backward's split pair,
+and the wrappers' launch counters.
 
 Tolerances. fp32: atol 2e-5 on gradients of magnitude about 1 (summation
 order, and p taken as exp(s - lse) here but recomputed from the row max and
@@ -40,11 +44,12 @@ def _jax_grads(q, k, v, do, dtype):
     return [np.asarray(g.astype(jnp.float32)) for g in vjp(jnp.asarray(do, JDT[dtype]))]
 
 
-def _port_grads(q, k, v, do, dtype):
+def _port_grads(q, k, v, do, dtype, mode="fused"):
     q, k, v, do = (torch.from_numpy(x).to(TDT[dtype]) for x in (q, k, v, do))
     args = dict(scale=SCALE, num_heads=H, valid_len=VALID)
     o, lse = tfa.pk_fwd_plain(q, k, v, **args)
-    grads = tfa.pk_bwd(q, k, v, o, lse, do, **args)
+    bwd = tfa.pk_bwd if mode == "fused" else tfa.pk_bwd_split
+    grads = bwd(q, k, v, o, lse, do, **args)
     assert all(g.dtype == TDT[dtype] and g.shape == q.shape for g in grads)
     return [g.float().numpy() for g in grads]
 
@@ -52,12 +57,13 @@ def _port_grads(q, k, v, do, dtype):
 @pytest.mark.parametrize("mode", ["fused", "both"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_plain_matches_pallas_bwd(dtype, mode, monkeypatch):
-    """Both JAX modes compute one function: the port's one backward covers
-    the fused kernel and the split dq/dkv pair."""
+    """Each JAX mode against the port's backward of the same mode: the fused
+    kernel's plain version (`pk_bwd`) and the split pair's (`pk_dq` then
+    `pk_dkv`)."""
     monkeypatch.setenv("OWLVIT_PACKED_BWD", mode)
     q, k, v, do = _inputs(0)
     ref = _jax_grads(q, k, v, do, dtype)
-    got = _port_grads(q, k, v, do, dtype)
+    got = _port_grads(q, k, v, do, dtype, mode)
     for name, g, r in zip(("dq", "dk", "dv"), got, ref):
         # "both" leaves dq of query rows >= valid_len unmasked; the port
         # zeroes them, as the fused kernel does
@@ -132,3 +138,159 @@ def test_other_devices_raise():
     lse = torch.empty((1, 1, 8), device="meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
         tfa.pk_bwd(x, x, x, x, lse, x, scale=SCALE, num_heads=1)
+
+
+def _counts():
+    return {f"{w.__name__}.{a}": getattr(w, a) for w in (tfa.pk_bwd, tfa.pk_dq, tfa.pk_dkv)
+            for a in ("launches", "transposed_launches")}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("valid_len", [VALID, None])
+def test_split_pair_is_the_fused_function(dtype, valid_len):
+    """On CPU tensors the pair (`pk_dq`, then `pk_dkv` on its delta) gives
+    `pk_bwd`'s dq, dk and dv bit for bit, delta is rowsum(do * o) in fp32
+    [B, H, S], and no counter moves."""
+    before = _counts()
+    q, k, v, do = (torch.from_numpy(x).to(TDT[dtype]) for x in _inputs(4))
+    args = dict(scale=SCALE, num_heads=H, valid_len=valid_len)
+    o, lse = tfa.pk_fwd(q, k, v, **args)
+    dq, delta = tfa.pk_dq(q, k, v, o, lse, do, **args)
+    dk, dv = tfa.pk_dkv(q, k, v, lse, do, delta, **args)
+    want = tfa.pk_bwd(q, k, v, o, lse, do, **args)
+    assert all(torch.equal(a, b) for a, b in zip((dq, dk, dv), want))
+    assert all(torch.equal(a, b) for a, b in zip(tfa.pk_bwd_split(q, k, v, o, lse, do, **args),
+                                                 want))
+    ref = (do.float() * o.float()).reshape(B, S, H, HD).sum(-1).transpose(1, 2)
+    assert delta.dtype == torch.float32 and delta.is_contiguous()
+    torch.testing.assert_close(delta, ref, atol=0, rtol=0)
+    assert _counts() == before == dict.fromkeys(before, 0)
+
+
+@pytest.mark.parametrize("env", [None, "fused", "both"])
+@pytest.mark.parametrize("hint", [None, "fused", "both"])
+def test_bwd_mode_matches_jax(env, hint, monkeypatch):
+    """OWLVIT_PACKED_BWD wins when set, then the caller's hint, then
+    "fused", as `_pk_bwd_mode` resolves it."""
+    if env is None:
+        monkeypatch.delenv("OWLVIT_PACKED_BWD", raising=False)
+    else:
+        monkeypatch.setenv("OWLVIT_PACKED_BWD", env)
+    assert tfa.pk_bwd_mode(hint) == jfa._pk_bwd_mode(hint)
+
+
+@pytest.mark.parametrize("env, hint", [("dq", None), ("dkv", "both"), (None, "other")])
+def test_bwd_mode_refuses_the_diagnostic_halves(env, hint, monkeypatch):
+    """JAX's diagnostic modes "dq" and "dkv" (and any other value) raise:
+    the port runs "fused" and "both" only."""
+    if env is None:
+        monkeypatch.delenv("OWLVIT_PACKED_BWD", raising=False)
+    else:
+        monkeypatch.setenv("OWLVIT_PACKED_BWD", env)
+    with pytest.raises(ValueError, match="packed backward mode"):
+        tfa.pk_bwd_mode(hint)
+
+
+def _jax_hints(n_layers, fused_ln, monkeypatch):
+    """The bwd_hint values the JAX package's layers.encoder passes to its
+    attention for a stack of n_layers on the flash path."""
+    from owlvit_tpu.models import layers as jlayers
+    from owlvit_tpu.ops import fused_ln as jfused_ln
+
+    seen = set()
+
+    def attention(p, x, num_heads, **kw):
+        seen.add(kw.get("bwd_hint"))
+        return x
+
+    monkeypatch.setattr(jlayers, "attention", attention)
+    monkeypatch.setattr(jfused_ln, "add_ln", lambda x, h, p, eps: (x + h, x + h))
+    monkeypatch.setenv("OWLVIT_FUSED_LN", "1" if fused_ln else "0")
+    D = H * HD
+    zeros = lambda *shape: jnp.zeros((n_layers, *shape), jnp.float32)  # noqa: E731
+    ln = {"scale": zeros(D), "bias": zeros(D)}
+    dense = lambda i, o: {"kernel": zeros(i, o), "bias": zeros(o)}  # noqa: E731
+    stacked = {"ln1": ln, "ln2": ln, "attn": {n: dense(D, D) for n in ("q", "k", "v", "out")},
+               "mlp": {"fc1": dense(D, 2 * D), "fc2": dense(2 * D, D)}}
+    jlayers.encoder(stacked, jnp.zeros((1, 4, D)), H, 1e-5, impl="flash")
+    return seen
+
+
+@pytest.mark.parametrize("fused_ln", [False, True])
+@pytest.mark.parametrize("n_layers", [1, 2, 3, 12])
+def test_encoder_hint_matches_jax(n_layers, fused_ln, monkeypatch):
+    """layers.encoder's backward hint: "fused" for stacks of 2 layers or
+    fewer, "both" for longer ones and on the fused add+LayerNorm branch at
+    any depth, as the JAX package's encoder passes it; each recorded
+    attention call carries it to flash_attention_packed."""
+    want = _jax_hints(n_layers, fused_ln, monkeypatch)
+    seen = []
+    monkeypatch.setattr(layers, "flash_attention_packed", lambda *a, bwd_hint=None, **kw:
+                        seen.append(bwd_hint) or tfa.flash_attention_packed(
+                            *a, bwd_hint=bwd_hint, **kw))
+    D = H * HD
+    blocks = torch.nn.ModuleList(layers.EncoderBlock(D, 2 * D, H, 1e-5,
+                                                     generator=torch.Generator().manual_seed(i))
+                                 for i in range(n_layers))
+    x = torch.zeros(1, 4, D, requires_grad=True)
+    layers.encoder(blocks, x).sum().backward()
+    assert len(seen) == n_layers and set(seen) == want
+    assert want == {"fused" if n_layers <= 2 and not fused_ln else "both"}
+
+
+@pytest.mark.parametrize("env", [None, "fused", "both"])
+@pytest.mark.parametrize("fn", ["packed", "hybrid", "transposed"])
+def test_backward_takes_the_mode(fn, env, monkeypatch):
+    """The packed Function's backward runs `pk_bwd` or the pair as
+    `pk_bwd_mode(bwd_hint)` resolves at backward time (the hint here
+    "both"); the transposed and hybrid backward always run the pair at one
+    head, as the JAX package's `_bwd` always runs `_dq_kernel` and
+    `_dkv_kernel`."""
+    if env is None:
+        monkeypatch.delenv("OWLVIT_PACKED_BWD", raising=False)
+    else:
+        monkeypatch.setenv("OWLVIT_PACKED_BWD", env)
+    calls = []
+    for name in ("pk_bwd", "pk_dq", "pk_dkv"):
+        real = getattr(tfa, name)
+        monkeypatch.setattr(tfa, name, lambda *a, _n=name, _f=real, **kw:
+                            calls.append((_n, kw["num_heads"])) or _f(*a, **kw))
+    q, k, v, do = (torch.from_numpy(x) for x in _inputs(5))
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    if fn == "packed":
+        o = tfa.flash_attention_packed(*leaves, scale=SCALE, num_heads=H, bwd_hint="both")
+    elif fn == "hybrid":
+        o = tfa.flash_attention_hybrid(*leaves, scale=SCALE, num_heads=H)
+    else:
+        o = tfa.flash_attention(*(x.view(B, S, H, HD) for x in leaves),
+                                scale=SCALE).reshape(B, S, H * HD)
+    o.backward(do)
+    if fn == "packed" and env == "fused":
+        assert calls == [("pk_bwd", H)]
+    else:
+        heads = H if fn == "packed" else 1
+        assert calls == [("pk_dq", heads), ("pk_dkv", heads)]
+
+
+def test_pair_counters_do_not_advance_on_cpu(monkeypatch):
+    """A recorded stack of 3 layers takes the pair; on CPU tensors the
+    wrappers run the plain versions and count nothing."""
+    monkeypatch.delenv("OWLVIT_PACKED_BWD", raising=False)
+    before = _counts()
+    D = H * HD
+    blocks = torch.nn.ModuleList(layers.EncoderBlock(D, 2 * D, H, 1e-5,
+                                                     generator=torch.Generator().manual_seed(0))
+                                 for _ in range(3))
+    x = torch.randn(1, 6, D, requires_grad=True)
+    layers.encoder(blocks, x).sum().backward()
+    assert x.grad is not None and torch.isfinite(x.grad).all()
+    assert _counts() == before == dict.fromkeys(before, 0)
+
+
+@pytest.mark.parametrize("name", ["pk_dq", "pk_dkv"])
+def test_pair_other_devices_raise(name):
+    x = torch.empty((1, 8, 64), device="meta")
+    rows = torch.empty((1, 1, 8), device="meta")
+    args = (x, x, x, x, rows, x) if name == "pk_dq" else (x, x, x, rows, x, rows)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        getattr(tfa, name)(*args, scale=SCALE, num_heads=1)

@@ -255,6 +255,38 @@ def test_port_serves_open_vocab_without_jax(tmp_path):
     _run(_OPEN_VOCAB_CODE, tmp_path)
 
 
+_EXPORT_CODE = """
+import sys
+
+import pytest
+sys.modules["jax"] = None
+import numpy as np
+import torch
+from owlvit_tpu_torch.models import convert, get_config, owlvit
+from owlvit_tpu_torch.train import export
+
+cfg = get_config("tiny")
+model = owlvit.init(cfg, torch.Generator().manual_seed(0), num_queries=6)
+export.save_exported("full.pt2", export.export_detector(model, cfg, batch_size=2))
+export.save_exported("wl.pt2", export.export_detector_weightless(model, cfg, batch_size=2))
+convert.save_params("wl.npz", convert.to_jax_tree(model))
+img = np.random.default_rng(0).integers(0, 255, (2, 96, 96, 3), dtype=np.uint8)
+a = export.load_exported("full.pt2")(img)
+b = export.load_exported_weightless("wl.pt2", convert.load_params("wl.npz"), device="cpu")(img)
+assert all(torch.allclose(x, y, atol=1e-6) for x, y in zip(a, b))
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("owlvit_tpu", "jaxlib", "flax", "optax"))
+assert not leaked, leaked
+print("ok")
+"""
+
+
+def test_port_exports_without_jax(tmp_path):
+    """export_detector and the weightless export, saved, loaded and called,
+    with jax impossible to import."""
+    _run(_EXPORT_CODE, tmp_path)
+
+
 _SCRIPT_CODE = """
 import importlib.util
 import sys

@@ -1,28 +1,30 @@
 #!/usr/bin/env python3
-"""Where the time of the attention backward `pk_bwd` goes: bf16, one NVIDIA
-GPU, at the train step's packed shape [32, 2305, 768] (12 heads) and the
-transposed [384, 2305, 64] (one head).
+"""Where the time of the attention backward goes: bf16, one NVIDIA GPU, at
+the train step's packed shape [32, 2305, 768] (12 heads) and the transposed
+[384, 2305, 64] (one head), in the two modes: "fused" (`pk_bwd`, one
+kernel) and "both" (the split pair `pk_dq` then `pk_dkv`).
 
-Usage: python3 tools/torch_pk_bwd_profile.py [--out DIR] [--baseline CSRC]
+Usage: python3 tools/torch_pk_bwd_profile.py [--out DIR] [--mode fused|both]
+                                             [--baseline CSRC]
 
 Prints one JSON line per phase:
   device   the card's name and power limit (nvidia-smi).
-  build    the default kernel library and a timing-only variant built with
-           -DOWLVIT_PK_BWD_NO_DQ_RED (the bf16 kernel computes its dq
-           partials but adds nothing to dq, so dq is wrong); nvcc's
-           registers and spills for the bf16 kernels of each.
-  shape    per shape: the wrapper's time with the real kernel and with the
-           variant, taken in turns (real, variant, variant, real; CUDA
-           events over 10 calls each), the share of the real time that the
-           dq reduction takes (1 - variant / real), and torch.profiler's
-           device time per call of each kernel the wrapper launches (the
-           zero fill of the dq buffer, the delta kernel, the main kernel,
-           the cast of dq).
+  build    nvcc's registers and spills for the bf16 backward kernels (the
+           key-tile kernel as the fused kernel and as the pair's dkv
+           kernel, the delta kernel, the pair's dq kernel).
+  shape    per shape: the fused backward and the pair in turns (fused,
+           pair, pair, fused; CUDA events over 10 calls each), each half of
+           the pair alone, the share of the fused kernel's time that its dq
+           product and reductions take, read as 1 - dkv / fused (the dkv
+           kernel is the fused kernel with them compiled out; the delta
+           kernel, the zero fill and the cast count on the fused side), and
+           torch.profiler's device time per call of each kernel that
+           --mode's backward launches.
   baseline with --baseline CSRC (a directory of kernel sources, e.g. an
-           earlier commit's owlvit_tpu_torch/csrc unpacked by git archive,
-           with the same C entry points): per shape, the wrapper's time with
-           that build and with this tree's, in turns (baseline, tree, tree,
-           baseline; 10 calls each).
+           earlier commit's owlvit_tpu_torch/csrc unpacked by git archive):
+           per shape, --mode's backward with that build and with this
+           tree's, in turns (baseline, tree, tree, baseline; 10 calls each).
+           Mode "both" needs sources with the pair's entry points.
 With --out, the lines also go to DIR/pk_bwd_profile.jsonl.
 """
 
@@ -40,7 +42,7 @@ import torch  # noqa: E402
 from owlvit_tpu_torch.ops import _cuda  # noqa: E402
 from owlvit_tpu_torch.ops import flash_attention as fa  # noqa: E402
 
-VARIANT = ("-DOWLVIT_PK_BWD_NO_DQ_RED",)
+MODES = {"fused": fa.pk_bwd, "both": fa.pk_bwd_split}
 SHAPES = (("packed", 32, 12), ("transposed", 384, 1))  # (name, sequences, heads)
 S, HD = 2305, 64
 
@@ -59,10 +61,10 @@ def cuda_ms(fn, iters=10):
 
 
 def bwd_ptxas(lib_path):
-    """nvcc's lines (stack and spills, registers) for the bf16 backward's
-    entry functions (the main kernel and the delta kernel)."""
+    """nvcc's lines (stack and spills, registers, any wgmma serialisation
+    note) for the bf16 backward's entry functions."""
     return {name: lines for name, lines in _cuda.ptxas_report(lib_path).items()
-            if "pk_bwd" in name and "bf16" in name}
+            if ("pk_bwd" in name or "pk_dq" in name) and "bf16" in name}
 
 
 def build_from(csrc):
@@ -105,6 +107,8 @@ def kernel_times(fn, calls=3):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None)
+    ap.add_argument("--mode", choices=sorted(MODES), default="fused",
+                    help="the backward profiled and timed against --baseline")
     ap.add_argument("--baseline", default=None,
                     help="directory of kernel sources to time this tree's against")
     args = ap.parse_args()
@@ -120,9 +124,7 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     emit("device", name=torch.cuda.get_device_name(0), nvidia_smi=smi)
-    real_path, variant_path = _cuda.build(), _cuda.build(VARIANT)
-    variant = _cuda.bind(variant_path)
-    emit("build", real=bwd_ptxas(real_path), no_dq_reduction=bwd_ptxas(variant_path))
+    emit("build", mode=args.mode, kernels=bwd_ptxas(_cuda.build()))
     baseline = build_from(args.baseline) if args.baseline else None
 
     for name, B, H in SHAPES:
@@ -131,28 +133,30 @@ def main():
                        for _ in range(4))
         kw = dict(scale=HD**-0.5, num_heads=H)
         o, lse = fa.pk_fwd(q, k, v, **kw)
+        dq, delta = fa.pk_dq(q, k, v, o, lse, do, **kw)
 
-        def real():
-            return fa.pk_bwd(q, k, v, o, lse, do, **kw)
+        def run(mode):
+            return lambda: MODES[mode](q, k, v, o, lse, do, **kw)
 
-        def no_red():
-            return with_library(variant, real)
-
-        turns = [cuda_ms(real), cuda_ms(no_red), cuda_ms(no_red), cuda_ms(real)]
-        real_ms, variant_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
-        emit("shape", shape=[B, S, H * HD], heads=H, real_ms=real_ms,
-             no_dq_reduction_ms=variant_ms, turns_ms=turns,
-             dq_reduction_share=1 - variant_ms / real_ms,
-             kernel_us_per_call=kernel_times(real))
+        turns = [cuda_ms(run("fused")), cuda_ms(run("both")), cuda_ms(run("both")),
+                 cuda_ms(run("fused"))]
+        fused_ms, pair_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        dq_ms = cuda_ms(lambda: fa.pk_dq(q, k, v, o, lse, do, **kw))
+        dkv_ms = cuda_ms(lambda: fa.pk_dkv(q, k, v, lse, do, delta, **kw))
+        emit("shape", shape=[B, S, H * HD], heads=H, fused_ms=fused_ms, pair_ms=pair_ms,
+             turns_ms=turns, dq_ms=dq_ms, dkv_ms=dkv_ms,
+             fused_dq_share=1 - dkv_ms / fused_ms, mode=args.mode,
+             kernel_us_per_call=kernel_times(run(args.mode)))
         if baseline is not None:
             def base():
-                return with_library(baseline, real)
+                return with_library(baseline, run(args.mode))
 
-            turns = [cuda_ms(base), cuda_ms(real), cuda_ms(real), cuda_ms(base)]
+            tree = run(args.mode)
+            turns = [cuda_ms(base), cuda_ms(tree), cuda_ms(tree), cuda_ms(base)]
             emit("baseline", shape=[B, S, H * HD], heads=H, csrc=args.baseline,
-                 baseline_ms=(turns[0] + turns[3]) / 2, tree_ms=(turns[1] + turns[2]) / 2,
-                 turns_ms=turns)
-        del q, k, v, do, o, lse
+                 mode=args.mode, baseline_ms=(turns[0] + turns[3]) / 2,
+                 tree_ms=(turns[1] + turns[2]) / 2, turns_ms=turns)
+        del q, k, v, do, o, lse, dq, delta
         torch.cuda.empty_cache()
     if args.out:
         os.makedirs(args.out, exist_ok=True)
