@@ -9,7 +9,8 @@ Phases, each printing its numbers on a line of its own:
      nvcc's registers, stack and spills per kernel, the bf16 attention
      forward's, backward's and split pair's under keys of their own (the
      forward and the pair's dq and dkv kernels must not spill; none may
-     carry a note that ptxas serialises its wgmma), and
+     carry a note that ptxas serialises its wgmma), the dq kernel's
+     dynamic shared memory, and
      the bf16 add+LN backward's per width with its dynamic shared memory
      and blocks per SM (it must not spill).
   3. kernel: pk_fwd against its plain PyTorch version on the card at the
@@ -17,7 +18,8 @@ Phases, each printing its numbers on a line of its own:
      bf16 and fp32, fixed-shift (C=20) and per-row-max softmax.
   4. kernel_bwd: pk_bwd (mode "fused") and the split pair pk_dq + pk_dkv
      (mode "both") against the plain version at the same shapes and at [8,
-     2305, 768] unpadded, bf16 and fp32; two launches of the pair bit-equal.
+     2305, 768] unpadded, bf16 and fp32; two launches of the pair bit-equal;
+     the pair again at scale 0.1 (the dq kernel's k * scale scratch).
   5. kernel_ln: add_ln forward and backward against their plain versions at
      [32*2305, 768] (the trained shape), [8*2305, 768], [4*3601, 1024]
      (L/14) and [2305, 768], bf16 and fp32: r exact, the backward's sums the
@@ -410,6 +412,30 @@ def sdpa_ms(q, k, v, H, scale, do=None):
     return cuda_ms(fwd_bwd, 10)
 
 
+def sdpa_bwd_ms(q, k, v, H, scale, do):
+    """The library's attention backward alone at the same shape: the flash
+    backward, else the memory-efficient one where the flash kernel is not
+    built, fed with the outputs and logsumexp of that library's own forward
+    (called once, outside the timing). A yardstick only, the port never
+    calls it. Returns (ms, the op's name)."""
+    aten = torch.ops.aten
+    try:
+        qh, kh, vh, doh = (heads4(x, H) for x in (q, k, v, do))
+        o, lse, cum_q, cum_k, max_q, max_k, seed, offset = \
+            aten._scaled_dot_product_flash_attention(qh, kh, vh, scale=scale)[:8]
+        return cuda_ms(lambda: aten._scaled_dot_product_flash_attention_backward(
+            doh, qh, kh, vh, o, lse, cum_q, cum_k, max_q, max_k, 0.0, False, seed, offset,
+            scale=scale), 10), "aten._scaled_dot_product_flash_attention_backward"
+    except RuntimeError:  # no flash kernel for this card or build
+        B, S, D = q.shape
+        qm, km, vm, dom = (x.view(B, S, H, D // H) for x in (q, k, v, do))  # [B, S, H, hd]
+        o, lse, seed, offset, max_q, max_k = aten._efficient_attention_forward(
+            qm, km, vm, None, None, None, None, None, 0.0, 0, True, scale=scale)
+        return cuda_ms(lambda: aten._efficient_attention_backward(
+            dom, qm, km, vm, None, o, None, None, max_q, max_k, lse, 0.0, seed, offset, 0,
+            False, scale=scale), 10), "aten._efficient_attention_backward"
+
+
 def nvidia_smi():
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -465,8 +491,10 @@ def phase_build():
                      "blocks_per_sm": fused_ln._bwd_resident_blocks(
                          0, fused_ln.DTYPE_CODE[torch.bfloat16], D) / sms}
                  for D in (256, 512, 768, 1024)}
+    pk_dq_bf16 = {"ptxas": next(iter(dq.values())), "dynamic_smem_bytes": _cuda.query(
+        "owlvit_pk_dq_smem_bytes", torch.device("cuda", 0))}
     emit("build", seconds=build_s, library=lib_path.name, ptxas=report,
-         ptxas_pk_fwd_bf16=fwd, ptxas_pk_bwd_bf16=bwd, ptxas_pk_dq_bf16=dq,
+         ptxas_pk_fwd_bf16=fwd, ptxas_pk_bwd_bf16=bwd, ptxas_pk_dq_bf16=dq, pk_dq_bf16=pk_dq_bf16,
          ptxas_add_ln_bwd_bf16=ln_bwd,
          add_ln_bwd_bf16_by_width=ln_widths)
 
@@ -543,7 +571,9 @@ def check_bwd(err, dtype, what):
 def phase_kernel_bwd():
     """Backward kernels vs plain at the padded model shapes and at the
     unpadded [8, 2305, 768], bf16 and fp32: the fused kernel, and the split
-    pair (pk_dq then pk_dkv), whose two launches are bit-equal."""
+    pair (pk_dq then pk_dkv), whose two launches are bit-equal; then the
+    pair in bf16 at B/16's padded shape with scale 0.1, where the dq kernel
+    reads k * scale from its scratch instead of folding the scale."""
     b16 = get_config("b16").vision
     shapes = [*attention_shapes(),
               ("b16_unpadded_b8", b16.num_patches + 1, b16.num_patches + 1,
@@ -582,6 +612,26 @@ def phase_kernel_bwd():
         emit("kernel_bwd", model=name, **row)
         del q, k, v, do
         torch.cuda.empty_cache()
+    # the dq kernel's other path: at a scale that is not a power of two,
+    # bf16(k * scale) is not exact and the kernel reads a scratch that a
+    # launch before it fills (every model here has scale 1/8, which it folds)
+    name, S, valid, H, D, _ = next(shape for shape in shapes if shape[0] == "b16")
+    g = torch.Generator(device="cuda").manual_seed(103)
+    q, k, v, do = (torch.randn(BATCH, S, D, generator=g, device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    args = dict(scale=0.1, num_heads=H, valid_len=valid)
+    check(not fa.scale_is_exact_in_bf16(args["scale"]), "scale 0.1 is exact in bf16")
+    o, lse = fa.pk_fwd(q, k, v, **args)
+    pair = fa.pk_bwd_split(q, k, v, o, lse, do, **args)
+    again = fa.pk_bwd_split(q, k, v, o, lse, do, **args)
+    err = bwd_errors(pair, fa.pk_bwd_plain(q, k, v, o, lse, do, **args), valid)
+    check_bwd(err, torch.bfloat16, f"{name} bf16 split pair, scale 0.1")
+    err["repeat_bit_equal"] = all(torch.equal(a, b) for a, b in zip(pair, again))
+    check(err["repeat_bit_equal"], f"{name} bf16 scale 0.1: two launches of the split pair differ")
+    emit("kernel_bwd", model=name, scale=args["scale"], shape=[BATCH, S, D], heads=H,
+         valid_len=valid, pair_bf16=err)
+    del q, k, v, do, o, lse, pair, again
+    torch.cuda.empty_cache()
 
 
 def trained_shape_bwd(cfg, batch=32, slice_=4):
@@ -591,7 +641,9 @@ def trained_shape_bwd(cfg, batch=32, slice_=4):
     the comparison and their times. Two launches each: the fused kernel's dk
     and dv bit-equal and dq within its reductions' fp32 order, the pair's
     dq, dk and dv bit-equal. Times in turns (fused, pair, pair, fused)
-    beside scaled_dot_product_attention's forward + backward."""
+    beside the library's attention backward alone (`sdpa_bwd_ms`: the
+    library time of the fused kernel, of the pair and of each half) and
+    scaled_dot_product_attention's forward + backward."""
     vc = cfg.vision
     S, D, H, scale = vc.num_patches + 1, vc.hidden_size, vc.num_heads, vc.head_dim**-0.5
     g = torch.Generator(device="cuda").manual_seed(32)
@@ -647,22 +699,26 @@ def trained_shape_bwd(cfg, batch=32, slice_=4):
     dq_ms = cuda_ms(lambda: fa.pk_dq(q, k, v, o, lse, do, **args), 10)
     dkv_ms = cuda_ms(lambda: fa.pk_dkv(q, k, v, lse, do, delta, **args), 10)
     lib_fwd = sdpa_ms(q, k, v, H, scale)
-    lib = sdpa_ms(q, k, v, H, scale, do=do)
+    lib_fwd_bwd = sdpa_ms(q, k, v, H, scale, do=do)
+    lib, lib_op = sdpa_bwd_ms(q, k, v, H, scale, do)
     bound_ms, bound_by = bwd_bound(batch, S, D, H)
     dq_b, dkv_b = dq_bound(batch, S, D, H), dkv_bound(batch, S, D, H)
+    pair_op = f"{lib_op} (dq, dk and dv: the pair's)"
     row = {"shape": [batch, S, D], **err, "ms": (turns[0] + turns[3]) / 2,
-           "plain_ms": plain_ms, "library_ms": lib, "library_fwd_ms": lib_fwd,
+           "plain_ms": plain_ms, "library_ms": lib, "library_op": lib_op,
+           "library_fwd_ms": lib_fwd, "library_fwd_bwd_ms": lib_fwd_bwd,
            "bound_ms": bound_ms, "bound_by": bound_by,
            "pair": {**err_pair, "ms": (turns[1] + turns[2]) / 2,
-                    "plain_ms": dq_plain_ms + dkv_plain_ms,
+                    "plain_ms": dq_plain_ms + dkv_plain_ms, "library_ms": lib,
                     "bound_ms": dq_b[0] + dkv_b[0], "turns_ms": turns},
-           # each half of the pair on its own; no single library call
-           # computes only dq, or only dk and dv
+           # each half of the pair on its own, beside the pair's library
+           # time: no library call computes only dq, or only dk and dv
            "dq": {"max_abs_err": err_pair["dq_max_abs"], "ms": dq_ms, "plain_ms": dq_plain_ms,
-                  "bound_ms": dq_b[0], "bound_by": dq_b[1], "library_ms": None},
+                  "bound_ms": dq_b[0], "bound_by": dq_b[1], "library_ms": lib,
+                  "library_op": pair_op},
            "dkv": {"max_abs_err": max(err_pair["dk_max_abs"], err_pair["dv_max_abs"]),
                    "ms": dkv_ms, "plain_ms": dkv_plain_ms, "bound_ms": dkv_b[0],
-                   "bound_by": dkv_b[1], "library_ms": None}}
+                   "bound_by": dkv_b[1], "library_ms": lib, "library_op": pair_op}}
     emit("kernel_bwd_trained_shape", **row)
     del q, k, v, do, o, lse, delta
     torch.cuda.empty_cache()
@@ -1380,8 +1436,8 @@ def phase_kernel_transposed():
     reaches it), counted from 0; then the kernels on the transposed layout
     (the forward and the split pair at one head) against their plain
     versions; at the bf16 shape the times beside the bounds, the pair in
-    turns with the fused kernel at one head, and
-    scaled_dot_product_attention's."""
+    turns with the fused kernel at one head, the library's backward alone
+    and scaled_dot_product_attention's forward and forward + backward."""
     vc = get_config("b16").vision
     S, H, hd = vc.num_patches + 1, vc.num_heads, vc.head_dim
     scale = hd**-0.5
@@ -1421,25 +1477,28 @@ def phase_kernel_transposed():
             turns = []
             for bwd in (fa.pk_bwd, fa.pk_bwd_split, fa.pk_bwd_split, fa.pk_bwd):
                 turns.append(cuda_ms(lambda: bwd(q3, k3, v3, o3, lse, do3, **args), 10))
+            lib_bwd, lib_op = sdpa_bwd_ms(q3, k3, v3, 1, scale, do3)
+            pair_op = f"{lib_op} (dq, dk and dv: the pair's)"
             out = {
                 "fwd": {"max_abs_err": err["o_max_abs"],
                         "ms": cuda_ms(lambda: fa.pk_fwd(q3, k3, v3, **args), 20),
                         "plain_ms": plain_fwd_ms, "library_ms": sdpa_ms(q3, k3, v3, 1, scale),
                         "bound_ms": fb[0], "bound_by": fb[1], "function_ms": fn_ms},
-                # the halves of the pair; no single library call computes
-                # only dq, or only dk and dv
+                # the halves of the pair beside the pair's library time (no
+                # library call computes only dq, or only dk and dv)
                 "dq": {"max_abs_err": err["dq_max_abs"],
                        "ms": cuda_ms(lambda: fa.pk_dq(q3, k3, v3, o3, lse, do3, **args), 10),
-                       "plain_ms": plain_dq_ms, "library_ms": None,
+                       "plain_ms": plain_dq_ms, "library_ms": lib_bwd, "library_op": pair_op,
                        "bound_ms": dqb[0], "bound_by": dqb[1]},
                 "dkv": {"max_abs_err": max(err["dk_max_abs"], err["dv_max_abs"]),
                         "ms": cuda_ms(lambda: fa.pk_dkv(q3, k3, v3, lse, do3, delta, **args), 10),
-                        "plain_ms": plain_dkv_ms, "library_ms": None,
+                        "plain_ms": plain_dkv_ms, "library_ms": lib_bwd, "library_op": pair_op,
                         "bound_ms": dkvb[0], "bound_by": dkvb[1]},
                 "bwd": {"pair_ms": (turns[1] + turns[2]) / 2,
                         "fused_ms": (turns[0] + turns[3]) / 2, "turns_ms": turns,
-                        "pair_bound_ms": dqb[0] + dkvb[0],
-                        "library_ms": sdpa_ms(q3, k3, v3, 1, scale, do=do3)},
+                        "pair_bound_ms": dqb[0] + dkvb[0], "library_ms": lib_bwd,
+                        "library_op": lib_op,
+                        "library_fwd_bwd_ms": sdpa_ms(q3, k3, v3, 1, scale, do=do3)},
             }
             row.update({f"{d}_{k}": v for d in out for k, v in out[d].items()
                         if k != "max_abs_err"})
@@ -2491,8 +2550,10 @@ def main():
          pk_dkv_ms=bwd["dkv"]["ms"], pk_bwd_transposed_ms=transposed["bwd"]["fused_ms"],
          pk_bwd_pair_transposed_ms=transposed["bwd"]["pair_ms"],
          sdpa_fwd_ms={str(r["shape"][0]): r["library_ms"] for r in served},
-         sdpa_fwd_bwd_ms=bwd["library_ms"],
-         sdpa_fwd_bwd_transposed_ms=transposed["bwd"]["library_ms"])
+         library_bwd_ms=bwd["library_ms"], library_bwd_op=bwd["library_op"],
+         library_bwd_transposed_ms=transposed["bwd"]["library_ms"],
+         sdpa_fwd_bwd_ms=bwd["library_fwd_bwd_ms"],
+         sdpa_fwd_bwd_transposed_ms=transposed["bwd"]["library_fwd_bwd_ms"])
     train_launches = phase_train()
     cached_launches = phase_train_cached()
     with tempfile.TemporaryDirectory() as run_dir:
@@ -2522,6 +2583,10 @@ def main():
         "transposed_dq": {k: transposed["dq"][k] for k in ("max_abs_err", *keys)},
         "transposed_dkv": {k: transposed["dkv"][k] for k in ("max_abs_err", *keys)},
     }
+    # the backward rows' library call by name
+    for name, src in (("pk_bwd", bwd), ("pk_dq", bwd["dq"]), ("pk_dkv", bwd["dkv"]),
+                      ("transposed_dq", transposed["dq"]), ("transposed_dkv", transposed["dkv"])):
+        rows[name]["library_op"] = src["library_op"]
     print(nvidia_smi(), flush=True)  # again beside the results, after the long phases
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

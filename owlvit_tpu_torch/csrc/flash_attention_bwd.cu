@@ -67,37 +67,71 @@
 // on different rows. Warpgroups whose 64 keys all lie at or past valid_len
 // skip their products.
 //
-// Design of the pair's dq kernel (pk_dq_bf16), the forward kernel's layout
-// (flash_attention_fwd.cu) with lse given: one block of two warpgroups owns
-// (batch, head, 128-query tile), each warpgroup 64 rows; q and do stay in
-// shared memory, lse and delta in registers, and K/V tiles of 64 keys come
-// through a three-stage cp.async ring, two tiles loading ahead. Each thread
-// rounds the k*scale chunks it copied in place once they land, before the
-// tile's barrier: the TPU kernel's rounding point. Per tile: s = q .
-// (k*scale)^T and dp = do . v^T by wgmma m64n64k16 from shared memory; p =
-// exp(s - lse) and ds = p (dp - delta) in the accumulators; ds, rounded to
-// bf16 and re-packed in registers, is the A operand of dq += ds . (k*scale)
-// (k*scale read along its other axis). dq stays in fp32 registers over the
-// whole key walk, in a fixed order, and is written once in bf16: no atomics,
-// no buffer, no cast, so the pair's dq is the same from launch to launch.
+// Design of the pair's dq kernel (pk_dq_bf16; replaces _pk_dq_kernel, and at
+// one head the transposed _dq_kernel). Three S x S products (s, dp, dq) of
+// 2*S*S*64 flops per (batch, head) bound it on the tensor cores: 0.79 ms at
+// [32, 2305, 768] on an H100 SXM, against 0.15 ms for its bytes. What keeps
+// it from that bound is shared memory: s and dp read both operands from it
+// (q and do as A: registers for them would cost two blocks an SM), so a
+// warpgroup's 64-key tile moves ~48 KB through it for 384 clocks of
+// products. One block of two warpgroups owns (batch, head, 128-query tile),
+// each warpgroup 64 rows; q and do stay in shared memory, lse and delta in
+// registers (delta = rowsum(do * o) summed by the block itself, as the delta
+// kernel sums it, and written for the dkv kernel: one launch in bf16), and
+// K/V tiles of 64 keys come through a four-stage ring fed by
+// TMA (3-D maps whose key extent is valid_len, so the copy engine zero-fills
+// keys past it; 128-byte swizzle, the layout of sw_at). One thread issues
+// the first four tiles; after that the last of the block's warps to finish
+// with a stage (a counter in shared memory) refills it, so the walk has no
+// block barrier and no producer warp, and a warpgroup waits only on the
+// stage's mbarrier. Step t issues s(t) = q . k^T and dq(t-1) += ds(t-1) .
+// k (ds in registers as the A operand, k read along its other axis), runs
+// half of tile t's exps while dq(t-1) runs, issues dp(t) = do . v^T once
+// dq(t-1) has released the fragments, runs the other half while dp(t) runs,
+// and packs ds(t) = bf16(p (dp - delta)); the first s/dp and the last dq
+// are peeled off the loop. dq stays in fp32
+// registers over the whole key walk, in a fixed order, and is written once
+// in bf16: no atomics, so the pair's dq is the same from launch to launch.
+// k*scale is rounded to bf16 once (the TPU kernel's rounding point): where
+// the scale is a power of two <= 1 (1/8 at head dim 64) that rounding is
+// exact, so the kernel reads k and takes the scale into the exps' FMA and
+// dq's store, with the same bits; any other scale goes through a scratch
+// that a small launch fills first. A warpgroup whose rows all lie past S
+// leaves after the prologue. Steps, timed in turns on an H100 80GB HBM3 at 700 W
+// at [32, 2305, 768] (tools/torch_pk_bwd_profile.py): the parent's
+// cp.async ring with a block barrier and a rounding pass per tile, 2.03-2.09
+// ms; full overlap (s, dp, dq's accumulators and ds live together) spilled
+// at 128 registers and ptxas serialised every wgmma (C7512): 2.90 ms; the
+// same at one block an SM: 2.63; dp after dq (kept): 1.92 against 2.05;
+// k*scale from a scratch instead of the rounding pass: 1.79 against 2.01;
+// TMA: 1.67 against 1.73; the warpgroup past S leaving: within the noise
+// (kept); the maps' L2 promotion 128 B: no change (dropped); four
+// warpgroups and 256 queries a block (one block an SM, the K/V stream
+// halved): 1.80 against 1.71 (dropped); the scale folded: the delta launch
+// 0.147 -> 0.080 ms; delta summed in the dq kernel (no delta launch): 1.65
+// against 1.68; half the exps moved behind dp: 1.61 against 1.65.
+// Computing on stale tiles instead of loading them (a measurement, not a
+// design) is 9% faster: what the K/V stream costs.
 // The pair computes s and dp twice (seven S x S products against five).
 //
 // ptxas serialises every wgmma of a kernel (a C75xx note in -Xptxas -v's
 // report) when a product sits under a branch it cannot prove uniform
-// (C7520), or when other instructions write a product's accumulators
-// between the fence and the commit (C7515); so the warpgroup index is
-// broadcast from lane 0, and the dq accumulators are zeroed before the fence.
-// delta comes from a first small kernel (8 threads a row, 16-byte loads),
-// launched by the fused entry point and by the pair's dq entry point; the
+// (C7520), when other instructions write a product's accumulators between
+// the fence and the commit (C7515), or when it runs out of registers for
+// them (C7512); so the warpgroup index is broadcast from lane 0, and the dq
+// accumulators are zeroed before the fence.
+// The fused entry point gets delta from a first small kernel (8 threads a
+// row, 16-byte loads; fp32 and the pair's fp32 dq entry point alike); the
 // dkv entry point reads the delta the dq call wrote.
 // Ragged tiles (S = 2305 = 18*128 + 1, valid_len < S) are masked in the
 // kernels, so nothing is padded. fp32 inputs take two FMA kernels, one by key
 // tile (dk, dv) and one by query tile (dq), with no atomics: the fused entry
 // point launches both, the pair's entry points one each.
-// Given up: TMA and warp specialisation (cp.async feeds the rings; the
-// products wait for their own wgmma), ds kept in fp32 (the TPU kernels'
-// rounding is the contract).
+// Given up: TMA and warp specialisation in the key-tile kernel (cp.async
+// feeds its ring; the products wait for their own wgmma), ds kept in fp32
+// (the TPU kernels' rounding is the contract).
 
+#include <cuda.h>  // CUtensorMap; its encoder is reached through the runtime (no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -166,7 +200,7 @@ __global__ void pk_bwd_delta(const T* __restrict__ dout, const T* __restrict__ o
 
 // bf16 delta: eight threads per (row, head), each one 16-byte load of do and
 // of o and eight fp32 FMAs, then a three-step shuffle sum; a warp reads 512
-// contiguous bytes of each.
+// contiguous bytes of each. The dq kernel sums its rows' delta the same way.
 __global__ void __launch_bounds__(256)
     pk_bwd_delta_bf16(const __nv_bfloat16* __restrict__ dout,
                       const __nv_bfloat16* __restrict__ o, float* __restrict__ delta, int S,
@@ -191,6 +225,18 @@ __global__ void __launch_bounds__(256)
     const long long row = rh / H, b = row / S, i = row % S;
     delta[((size_t)b * H + h) * S + i] = sum;
   }
+}
+
+// ks = bf16(k * scale), eight values a thread: the dq kernel's K tiles where
+// that rounding is not exact (n8: the number of 8-value chunks)
+__global__ void __launch_bounds__(256)
+    k_scaled_bf16(const __nv_bfloat16* __restrict__ k, __nv_bfloat16* __restrict__ ks,
+                  long long n8, float scale) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n8) return;
+  uint4 x = *reinterpret_cast<const uint4*>(k + idx * 8);
+  scale_bf16x8(x, scale);
+  *reinterpret_cast<uint4*>(ks + idx * 8) = x;
 }
 
 // Query tile q0 (q, do, lse, delta of one head) into ring stage `stage`, by
@@ -485,54 +531,105 @@ __global__ void __launch_bounds__(kThreads, 2)
 
 // The pair's bf16 dq kernel: one block of two warpgroups per (batch, head,
 // 128-query tile), each warpgroup 64 query rows (each warp 16), 64-key K/V
-// tiles through a three-stage ring.
-constexpr int kDqBq = 128;  // query rows per block
-constexpr int kDqBk = 64;   // keys per K/V tile
-constexpr int kDqStages = 3;
-constexpr int kDqAhead = kDqStages - 1;  // tiles loading ahead of the one computed
-constexpr int kDqColTiles = kDqBk / 8;   // 8-key column tiles of a tile's scores
+// tiles through a four-stage ring fed by TMA: tile t computed, tile t - 1
+// still read by its dq product, tiles t + 1 and t + 2 landed or in flight.
+constexpr int kDqWgs = 2;             // warpgroups per block
+constexpr int kDqThreads = 128 * kDqWgs;
+constexpr int kDqBq = 64 * kDqWgs;    // query rows per block
+constexpr int kDqBk = 64;             // keys per K/V tile
+constexpr int kDqStages = 4;
+constexpr int kDqColTiles = kDqBk / 8;  // 8-key column tiles of a tile's scores
+constexpr int kDqTileBytes = 2 * kDqBk * kHd * 2;  // one K and one V tile, bf16
 
-// The dq kernel's dynamic shared memory (80 KB, plus 1 KB to align it; two
-// blocks fit on an SM), every tile in the 128-byte swizzled layout.
+// The dq kernel's dynamic shared memory (97 KB with the mbarriers, plus 1 KB
+// to align it; two blocks fit on an SM), every tile in the 128-byte swizzled
+// layout.
 struct __align__(1024) DqSmem {
   __nv_bfloat16 q[kDqBq * kHd];
   __nv_bfloat16 dout[kDqBq * kHd];
-  __nv_bfloat16 k[kDqStages][kDqBk * kHd];  // k * scale, once the tile has landed
+  __nv_bfloat16 k[kDqStages][kDqBk * kHd];  // k, or k * scale (owlvit_pk_dq)
   __nv_bfloat16 v[kDqStages][kDqBk * kHd];
+  float delta[kDqBq];             // rowsum(do * o) of the block's rows
+  uint64_t full[kDqStages];      // the stage's K and V tiles have landed
+  unsigned int done[kDqStages];  // warps done with the stage, counted up
 };
 constexpr int kDqSmemBytes = sizeof(DqSmem) + 1024;
 
-// K/V tile k0 of one head into ring stage `stage`, by cp.async: keys >=
-// valid_len zero-filled. Thread x copies chunks x and x + kThreads of each.
-__device__ __forceinline__ void load_kv_tile(DqSmem& sm, int stage, const __nv_bfloat16* k,
-                                             const __nv_bfloat16* v, int k0, int valid_len,
-                                             int D) {
-  for (int i = threadIdx.x; i < kDqBk * (kHd / 8); i += kThreads) {
-    const int r = i >> 3, c = i & 7;
-    const bool in = k0 + r < valid_len;
-    const size_t at = (size_t)(in ? k0 + r : 0) * D + c * 8;
-    cp_async16(sm.k[stage] + sw_at(r, c), k + at, in);
-    cp_async16(sm.v[stage] + sw_at(r, c), v + at, in);
+// acc (+)= a . b^T for the warpgroup's 64 rows and a 64-key tile, a and b
+// K-major in shared memory (s = q . k^T, dp = do . v^T); the first k-step
+// overwrites. Issued and committed as one group, not waited for.
+__device__ __forceinline__ void issue_scores(float (&acc)[kDqColTiles][4], uint64_t adesc,
+                                             uint64_t bdesc) {
+#pragma unroll
+  for (int kk = 0; kk < kHd / 16; ++kk)
+    wgmma_m64n64k16_ss(&acc[0][0], adesc + 2 * kk, bdesc + 2 * kk, kk);
+  wgmma_commit();
+}
+
+// dq += ds . k for a 64-key tile: ds from registers (pa[c], the A fragment
+// of 16-key chunk c), k read along its other axis. Issued and committed as
+// one group, not waited for.
+__device__ __forceinline__ void issue_dq(float (&acc)[kHd / 8][4],
+                                         const uint32_t (&pa)[kDqColTiles / 2][4],
+                                         uint64_t kdesc) {
+#pragma unroll
+  for (int c = 0; c < kDqColTiles / 2; ++c)
+    wgmma_m64n64k16_bt(&acc[0][0], pa[c], kdesc + 128 * c);
+  wgmma_commit();
+}
+
+// Keys >= valid_len of key tile k0 get s = -inf, so that p = 0 and ds = 0
+// whatever their k and v rows hold.
+__device__ __forceinline__ void mask_tile(float (&s)[kDqColTiles][4], int k0, int valid_len,
+                                          int t4) {
+  if (k0 + kDqBk > valid_len) {
+#pragma unroll
+    for (int j = 0; j < kDqColTiles; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (k0 + j * 8 + t4 * 2 + e >= valid_len) s[j][e] = s[j][e + 2] = -INFINITY;
   }
 }
 
-// k * scale in the input dtype, in place, on the chunks of a landed K tile
-// that this thread copied (its own cp.async writes are visible to it once
-// waited for; the tile's barrier publishes the result)
-__device__ __forceinline__ void scale_own_k_chunks(__nv_bfloat16* tile, float scale) {
-  for (int i = threadIdx.x; i < kDqBk * (kHd / 8); i += kThreads) {
-    uint4* at = reinterpret_cast<uint4*>(tile + sw_at(i >> 3, i & 7));
-    uint4 x = *at;
-    scale_bf16x8(x, scale);
-    *at = x;
+// p = exp(s - lse) = 2^(s sl - lse log2(e)) in fp32, in place in s, on
+// column tiles J0 .. J1 - 1 (one FMA and one ex2; sl = log2(e) times the
+// scale the product still lacks, le = lse log2(e) of this thread's rows
+// r0, r0 + 8)
+template <int J0, int J1>
+__device__ __forceinline__ void p_cols(float (&s)[kDqColTiles][4], float sl, float le0,
+                                       float le1) {
+#pragma unroll
+  for (int j = J0; j < J1; ++j) {
+    s[j][0] = ex2(fmaf(s[j][0], sl, -le0));
+    s[j][1] = ex2(fmaf(s[j][1], sl, -le0));
+    s[j][2] = ex2(fmaf(s[j][2], sl, -le1));
+    s[j][3] = ex2(fmaf(s[j][3], sl, -le1));
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 2)
-    pk_dq_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-               const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-               const float* __restrict__ lse, const float* __restrict__ delta,
-               __nv_bfloat16* __restrict__ dq, int S, int H, int valid_len, float scale) {
+// ds = p (dp - delta) in fp32, rounded to bf16: the C fragments of column
+// tiles 2c, 2c+1 are the A fragment of 16-key chunk c
+__device__ __forceinline__ void pack_ds(const float (&p)[kDqColTiles][4],
+                                        const float (&dp)[kDqColTiles][4], float dl0, float dl1,
+                                        uint32_t (&pa)[kDqColTiles / 2][4]) {
+#pragma unroll
+  for (int c = 0; c < kDqColTiles / 2; ++c) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int j = 2 * c + h;
+      pa[c][2 * h] = pack_bf16(p[j][0] * (dp[j][0] - dl0), p[j][1] * (dp[j][1] - dl0));
+      pa[c][2 * h + 1] = pack_bf16(p[j][2] * (dp[j][2] - dl1), p[j][3] * (dp[j][3] - dl1));
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kDqThreads, 2)
+    pk_dq_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ dout,
+               const __nv_bfloat16* __restrict__ o, const float* __restrict__ lse,
+               float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int S, int H,
+               int valid_len, float kscale,
+               const __grid_constant__ CUtensorMap kmap,
+               const __grid_constant__ CUtensorMap vmap) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   DqSmem& sm = *reinterpret_cast<DqSmem*>(
       smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023));
@@ -548,118 +645,148 @@ __global__ void __launch_bounds__(kThreads, 2)
   // compiler sees it uniform over the warp
   const int wg = __shfl_sync(0xffffffffu, warp >> 2, 0);
   const int r0 = (warp & 3) * 16 + g;  // this thread's rows in it: r0, r0 + 8
-  const __nv_bfloat16* kh = k + base;
-  const __nv_bfloat16* vh = v + base;
   const int n_tiles = (valid_len + kDqBk - 1) / kDqBk;  // tiles past valid_len add nothing
 
-#pragma unroll
-  for (int t = 0; t < kDqAhead; ++t) {  // fill the ring while q and do load
-    if (t < n_tiles) load_kv_tile(sm, t, kh, vh, t * kDqBk, valid_len, D);
-    cp_async_commit();
+  // K/V tile t into its stage, by the copy engine (one thread): the maps'
+  // key extent is valid_len, so keys >= valid_len land as zeros
+  auto load = [&](int t) {
+    const int st = t % kDqStages;
+    mbar_expect_tx(&sm.full[st], kDqTileBytes);
+    tma_load_3d(sm.k[st], &kmap, &sm.full[st], h * kHd, t * kDqBk, b);
+    tma_load_3d(sm.v[st], &vmap, &sm.full[st], h * kHd, t * kDqBk, b);
+  };
+  if (threadIdx.x == 0) {  // fill the ring while q and do load
+    for (int st = 0; st < kDqStages; ++st) {
+      mbar_init(&sm.full[st], 1);
+      sm.done[st] = 0;
+    }
+    fence_mbarrier_init();
+    for (int t = 0; t < kDqStages && t < n_tiles; ++t) load(t);
   }
-  // q and do, rows >= S zero; the first tile's fence and barrier publish them
-  for (int i = threadIdx.x; i < kDqBq * (kHd / 8); i += kThreads) {
+  // q and do into shared memory, rows >= S zero; delta = rowsum(do * o) of
+  // the block's rows, written for pk_dkv: the eight lanes of a row (its
+  // eight 16-byte chunks) sum as pk_bwd_delta_bf16 does, so the bits are
+  // the same
+  for (int i = threadIdx.x; i < kDqBq * (kHd / 8); i += kDqThreads) {
     const int r = i >> 3, c = i & 7;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u), y = x;
+    uint4 x = make_uint4(0u, 0u, 0u, 0u), y = x, z = x;
     if (q0 + r < S) {
       const size_t at = base + (size_t)(q0 + r) * D + c * 8;
       x = *reinterpret_cast<const uint4*>(q + at);
       y = *reinterpret_cast<const uint4*>(dout + at);
+      z = *reinterpret_cast<const uint4*>(o + at);
     }
     *reinterpret_cast<uint4*>(sm.q + sw_at(r, c)) = x;
     *reinterpret_cast<uint4*>(sm.dout + sw_at(r, c)) = y;
+    const __nv_bfloat16* ye = reinterpret_cast<const __nv_bfloat16*>(&y);
+    const __nv_bfloat16* ze = reinterpret_cast<const __nv_bfloat16*>(&z);
+    float sum = 0.f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) sum = fmaf(__bfloat162float(ye[e]), __bfloat162float(ze[e]), sum);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    if (c == 0) {
+      sm.delta[r] = sum;
+      if (q0 + r < S) delta[rbase + q0 + r] = sum;
+    }
   }
+  fence_proxy_async();  // q and do are read by wgmma
+  __syncthreads();      // q, do, delta, the barriers and the counters are in place
+  // A warpgroup whose rows all lie at or past S (the second of the last
+  // query tile at S = 2305) has nothing to compute: it leaves, and the
+  // stages' releases count the other warps alone.
+  const unsigned live_warps = 4 * min(kDqWgs, (S - q0 + 63) / 64);
+  if (q0 + wg * 64 >= S) return;
   // this thread's two query rows: lse * log2(e), infinite for rows >=
   // valid_len so that their p, and so their dq, is 0; and delta
   const int row0 = q0 + wg * 64 + r0, row1 = row0 + 8;
   const float le0 = row0 < valid_len ? lse[rbase + row0] * kLog2e : INFINITY;
   const float le1 = row1 < valid_len ? lse[rbase + row1] * kLog2e : INFINITY;
-  const float dl0 = row0 < valid_len ? delta[rbase + row0] : 0.f;
-  const float dl1 = row1 < valid_len ? delta[rbase + row1] : 0.f;
+  const float dl0 = row0 < valid_len ? sm.delta[wg * 64 + r0] : 0.f;
+  const float dl1 = row1 < valid_len ? sm.delta[wg * 64 + r0 + 8] : 0.f;
 
+  const float sl = kscale * kLog2e;  // exact: kscale is 1 or a power of two
   const uint64_t qdesc = sw128_desc(sm.q + wg * 64 * kHd);
   const uint64_t ddesc = sw128_desc(sm.dout + wg * 64 * kHd);
   float acc[kHd / 8][4];  // dq rows r0 / r0+8, 8 column tiles of 8
 #pragma unroll
   for (int d = 0; d < kHd / 8; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
-  float s[kDqColTiles][4], dp[kDqColTiles][4];  // scores then p; dp then ds
-  uint32_t pa[kDqColTiles / 2][4];              // ds in bf16, the A fragments
+  fence_operands(acc);  // the zeros are written before the first product's fence
+  float s[kDqColTiles][4], dp[kDqColTiles][4];  // scores, then p; dp
+  uint32_t pa[kDqColTiles / 2][4];              // ds of the previous tile in bf16
 
-  // Every warpgroup runs the products, one whose rows all lie past S too (on
-  // zero rows), and every step takes the same path around them.
-  for (int t = 0; t < n_tiles; ++t) {
+  // tile t has landed in its stage (the stage's use t / kDqStages)
+  auto wait_tile = [&](int t) { mbar_wait(&sm.full[t % kDqStages], (t / kDqStages) & 1); };
+  // This warp's products that read tile t have completed; the last of the
+  // block's warps to say so refills the stage with tile t + kDqStages.
+  // No block barrier: a warpgroup waits only for the tiles it reads.
+  auto release = [&](int t) {
+    if (lane == 0 && atomicAdd(&sm.done[t % kDqStages], 1u) % live_warps == live_warps - 1 &&
+        t + kDqStages < n_tiles)
+      load(t + kDqStages);
+    __syncwarp();
+  };
+
+  // Step t issues tile t's s product, then tile t - 1's dq product from the
+  // ds fragments it still holds, and computes half of tile t's p (the exps)
+  // while that dq product runs (the forward's overlap); then the dp
+  // product, and the other half of the exps while it runs; then ds, packed
+  // to bf16 once both products are done. dp is issued only once dq is done
+  // with the fragments: s, dp, dq's accumulators and the fragments all live
+  // at once would not fit two blocks an SM. The first s and dp and the last
+  // dq are peeled off the loop, so that no product sits under a branch and
+  // every step takes the same path around them.
+  constexpr int kHalf = kDqColTiles / 2;
+  wait_tile(0);
+  wgmma_fence();
+  issue_scores(s, qdesc, sw128_desc(sm.k[0]));
+  wgmma_wait_n<0>();
+  fence_operands(s);
+  mask_tile(s, 0, valid_len, t4);
+  p_cols<0, kHalf>(s, sl, le0, le1);
+  wgmma_fence();
+  issue_scores(dp, ddesc, sw128_desc(sm.v[0]));
+  p_cols<kHalf, kDqColTiles>(s, sl, le0, le1);
+  wgmma_wait_n<0>();
+  fence_operands(dp);
+  pack_ds(s, dp, dl0, dl1, pa);
+  for (int t = 1; t < n_tiles; ++t) {
     const int stage = t % kDqStages;
-    cp_async_wait<kDqAhead - 1>();  // tile t is in
-    scale_own_k_chunks(sm.k[stage], scale);
-    fence_proxy_async();  // the tiles (and q, do) are read by wgmma
-    __syncthreads();      // every warp is done with tile t - 1
-    {
-      const int tn = t + kDqAhead;  // refill the stage tile t - 1 used
-      if (tn < n_tiles) load_kv_tile(sm, tn % kDqStages, kh, vh, tn * kDqBk, valid_len, D);
-      cp_async_commit();
-    }
-    const uint64_t kdesc = sw128_desc(sm.k[stage]);
-    const uint64_t vdesc = sw128_desc(sm.v[stage]);
-    // s = q . (k*scale)^T and dp = do . v^T for the warpgroup's 64 rows, both
-    // operands K-major in shared memory; the first k-step overwrites
+    wait_tile(t);
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kHd / 16; ++kk)
-      wgmma_m64n64k16_ss(&s[0][0], qdesc + 2 * kk, kdesc + 2 * kk, kk);
-#pragma unroll
-    for (int kk = 0; kk < kHd / 16; ++kk)
-      wgmma_m64n64k16_ss(&dp[0][0], ddesc + 2 * kk, vdesc + 2 * kk, kk);
-    wgmma_commit();
-    wgmma_wait();
+    issue_scores(s, qdesc, sw128_desc(sm.k[stage]));
+    issue_dq(acc, pa, sw128_desc(sm.k[(t - 1) % kDqStages]));
+    wgmma_wait_n<1>();  // s, committed first
     fence_operands(s);
-    fence_operands(dp);
-    const int k0 = t * kDqBk;
-    if (k0 + kDqBk > valid_len) {  // keys >= valid_len: p = 2^-inf = 0
-#pragma unroll
-      for (int j = 0; j < kDqColTiles; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          if (k0 + j * 8 + t4 * 2 + e >= valid_len) s[j][e] = s[j][e + 2] = -INFINITY;
-    }
-    // p = exp(s - lse) = 2^(s log2(e) - lse log2(e)); ds = p (dp - delta),
-    // rounded to bf16: the C fragments of column tiles 2c, 2c+1 are the A
-    // fragment of 16-key chunk c
-#pragma unroll
-    for (int j = 0; j < kDqColTiles; ++j) {
-      dp[j][0] = ex2(fmaf(s[j][0], kLog2e, -le0)) * (dp[j][0] - dl0);
-      dp[j][1] = ex2(fmaf(s[j][1], kLog2e, -le0)) * (dp[j][1] - dl0);
-      dp[j][2] = ex2(fmaf(s[j][2], kLog2e, -le1)) * (dp[j][2] - dl1);
-      dp[j][3] = ex2(fmaf(s[j][3], kLog2e, -le1)) * (dp[j][3] - dl1);
-    }
-#pragma unroll
-    for (int c = 0; c < kDqColTiles / 2; ++c) {
-      pa[c][0] = pack_bf16(dp[2 * c][0], dp[2 * c][1]);
-      pa[c][1] = pack_bf16(dp[2 * c][2], dp[2 * c][3]);
-      pa[c][2] = pack_bf16(dp[2 * c + 1][0], dp[2 * c + 1][1]);
-      pa[c][3] = pack_bf16(dp[2 * c + 1][2], dp[2 * c + 1][3]);
-    }
-    // dq += ds . (k*scale), k*scale read along its other axis
-    wgmma_fence();
-#pragma unroll
-    for (int c = 0; c < kDqColTiles / 2; ++c)
-      wgmma_m64n64k16_bt(&acc[0][0], pa[c], kdesc + 128 * c);
-    wgmma_commit();
-    wgmma_wait();
+    mask_tile(s, t * kDqBk, valid_len, t4);
+    p_cols<0, kHalf>(s, sl, le0, le1);  // half the exps while dq(t - 1) runs
+    wgmma_wait_n<0>();  // tile t - 1's dq product: acc and pa are free
     fence_operands(acc);
     fence_operands(pa);
+    release(t - 1);
+    wgmma_fence();
+    issue_scores(dp, ddesc, sw128_desc(sm.v[stage]));
+    p_cols<kHalf, kDqColTiles>(s, sl, le0, le1);  // the other half while dp(t) runs
+    wgmma_wait_n<0>();
+    fence_operands(dp);
+    pack_ds(s, dp, dl0, dl1, pa);
   }
-  cp_async_wait<0>();  // no copy outlives the block
-  if (q0 + wg * 64 >= S) return;  // a warpgroup with no real row stores nothing
+  wgmma_fence();
+  issue_dq(acc, pa, sw128_desc(sm.k[(n_tiles - 1) % kDqStages]));
+  wgmma_wait_n<0>();
+  fence_operands(acc);
+  fence_operands(pa);
 
 #pragma unroll
   for (int d = 0; d < kHd / 8; ++d) {
     const int c = d * 8 + t4 * 2;
     if (row0 < S)
       *reinterpret_cast<__nv_bfloat162*>(dq + base + (size_t)row0 * D + c) =
-          __floats2bfloat162_rn(acc[d][0], acc[d][1]);
+          __floats2bfloat162_rn(acc[d][0] * kscale, acc[d][1] * kscale);
     if (row1 < S)
       *reinterpret_cast<__nv_bfloat162*>(dq + base + (size_t)row1 * D + c) =
-          __floats2bfloat162_rn(acc[d][2], acc[d][3]);
+          __floats2bfloat162_rn(acc[d][2] * kscale, acc[d][3] * kscale);
   }
 }
 
@@ -871,6 +998,54 @@ void launch_delta(const void* dout, const void* o, void* delta, int B, int S, in
   }
 }
 
+// cuTensorMapEncodeTiled from the driver, through the runtime (so that the
+// library needs no -lcuda); null if the driver does not have it
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The TMA map of the dq kernel's K or V tiles in a bf16 [B, S, D] tensor x:
+// a 3-D view (column, key, sequence) whose key extent is valid_len, so that
+// the copy engine zero-fills keys >= valid_len as it does past a tensor's
+// end; a box is 64 columns (one head) x 64 keys x 1 sequence, landing as
+// 128-byte rows with the 128-byte swizzle (sw_at, sw128_desc).
+cudaError_t dq_tile_map(CUtensorMap* map, const void* x, int B, int S, int D, int valid_len) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)valid_len, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};  // bytes
+  const cuuint32_t box[3] = {kHd, kDqBk, 1}, elem[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), dims,
+                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// the bf16 dq kernel's shared memory limit, set before its first launch
+cudaError_t dq_bf16_smem() {
+  static bool smem_set[kMaxDevices];
+  return set_smem_once(pk_dq_bf16, kDqSmemBytes, smem_set);
+}
+
 // the bf16 key-tile kernel's shared memory limit, set before its first launch
 template <bool kDq>
 cudaError_t bwd_bf16_smem() {
@@ -946,32 +1121,50 @@ extern "C" int owlvit_pk_bwd(const void* q, const void* k, const void* v,
 }
 
 // Mode "both", first half: delta (written for owlvit_pk_dkv) and dq in the
-// input dtype, by query tile.
+// input dtype, by query tile. bf16: one kernel computes both; its K tiles
+// are k * scale rounded to bf16 once (the TPU kernel's rounding point).
+// Where scale is a power of two <= 1 that rounding is exact, so ks may be
+// null: the kernel then reads k itself and applies the scale to its fp32
+// scores and dq, which gives the same bits. Else ks is [B, S, D] bf16
+// scratch, filled with k * scale by a launch before it. fp32 takes no ks.
 extern "C" int owlvit_pk_dq(const void* q, const void* k, const void* v, const void* o,
-                            const void* lse, const void* dout, void* delta, void* dq, int B,
-                            int S, int H, int hd, int valid_len, float scale, int dtype,
+                            const void* lse, const void* dout, void* delta, void* dq, void* ks,
+                            int B, int S, int H, int hd, int valid_len, float scale, int dtype,
                             void* stream) {
-  if (!valid_shape(B, S, H, hd, valid_len) || (dtype != 0 && dtype != 1))
+  int exp2 = 0;
+  const bool exact = scale > 0.f && scale <= 1.f && frexpf(scale, &exp2) == 0.5f;
+  if (!valid_shape(B, S, H, hd, valid_len) || (dtype != 0 && dtype != 1) ||
+      (dtype == 1 && ks == nullptr && !exact))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    static bool smem_set[kMaxDevices];
-    const cudaError_t err = set_smem_once(pk_dq_bf16, kDqSmemBytes, smem_set);
+    cudaError_t err = dq_bf16_smem();
     if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  launch_delta(dout, o, delta, B, S, H, dtype, st);
-  if (dtype == 1) {
+    CUtensorMap kmap, vmap;  // K tiles from ks (or k), V tiles from v
+    const int D = H * kHd;
+    if ((err = dq_tile_map(&kmap, ks ? ks : k, B, S, D, valid_len)) != cudaSuccess ||
+        (err = dq_tile_map(&vmap, v, B, S, D, valid_len)) != cudaSuccess)
+      return static_cast<int>(err);
     using bf = __nv_bfloat16;
+    if (ks) {
+      const long long n8 = (long long)B * S * D / 8;
+      k_scaled_bf16<<<static_cast<int>((n8 + 255) / 256), 256, 0, st>>>(
+          static_cast<const bf*>(k), static_cast<bf*>(ks), n8, scale);
+    }
     const dim3 grid((S + kDqBq - 1) / kDqBq, H, B);
-    pk_dq_bf16<<<grid, kThreads, kDqSmemBytes, st>>>(
-        static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
-        static_cast<const bf*>(dout), static_cast<const float*>(lse),
-        static_cast<const float*>(delta), static_cast<bf*>(dq), S, H, valid_len, scale);
+    pk_dq_bf16<<<grid, kDqThreads, kDqSmemBytes, st>>>(
+        static_cast<const bf*>(q), static_cast<const bf*>(dout), static_cast<const bf*>(o),
+        static_cast<const float*>(lse), static_cast<float*>(delta), static_cast<bf*>(dq), S, H,
+        valid_len, ks ? 1.f : scale, kmap, vmap);
   } else {
+    launch_delta(dout, o, delta, B, S, H, dtype, st);
     launch_dq_f32(q, k, v, dout, lse, delta, dq, B, S, H, valid_len, scale, st);
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+// The bf16 dq kernel's dynamic shared memory in bytes. Launches nothing.
+extern "C" int owlvit_pk_dq_smem_bytes() { return kDqSmemBytes; }
 
 // Mode "both", second half: dk and dv in the input dtype, by key tile, from
 // the delta owlvit_pk_dq wrote on the same stream.

@@ -1,7 +1,8 @@
 // Building blocks of the Hopper (sm_90a) attention kernels, shared by
 // flash_attention_fwd.cu and flash_attention_bwd.cu: the 128-byte swizzled
-// tile layout, cp.async copies, wgmma descriptors and products, their fences,
-// and small conversions. Each source includes it into its own anonymous
+// tile layout, cp.async copies, TMA tile copies and the mbarriers they
+// complete on, wgmma descriptors and products, their fences, and small
+// conversions. Each source includes it into its own anonymous
 // namespace, so nothing here has external linkage.
 //
 // Tiles: rows of 64 bf16 values (128 bytes) whose 16-byte chunks are
@@ -56,6 +57,57 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// mbarrier at `bar` in shared memory, expecting `count` arrivals a phase
+// (one thread initialises it, then fence_mbarrier_init and a block barrier
+// publish it)
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// Makes this thread's mbarrier initialisations visible to the async proxy
+// (the copy engine completes TMA copies on them).
+__device__ __forceinline__ void fence_mbarrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival on `bar` that also expects `bytes` of asynchronous copies to
+// complete on it before its phase does.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Spin until the phase of parity `parity` of `bar` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// One thread: the box at coordinates (c0, c1, c2) of the 3-D TMA tensor map
+// `map` (the address of a __grid_constant__ CUtensorMap kernel parameter)
+// into shared memory at dst, by the copy engine, completing its bytes on
+// `bar`. With the map's 128-byte swizzle and dst 1024-byte aligned, a box
+// of rows of 64 bf16 values lands in the layout of sw_at and sw128_desc.
+__device__ __forceinline__ void tma_load_3d(void* dst, const void* map, uint64_t* bar, int c0,
+                                            int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
 }
 
 // wgmma descriptor of a K-major bf16 tile with the 128-byte swizzle: rows of

@@ -41,8 +41,10 @@ _SIGNATURES = {
     "owlvit_pk_fwd": [_P] * 5 + [_I] * 5 + [_F, _I, _F, _I, _P],
     # q k v o lse do delta dq dk dv | B S H hd valid_len | scale dtype stream
     "owlvit_pk_bwd": [_P] * 10 + [_I] * 5 + [_F, _I, _P],
-    # q k v o lse do delta dq | B S H hd valid_len | scale dtype stream
-    "owlvit_pk_dq": [_P] * 8 + [_I] * 5 + [_F, _I, _P],
+    # q k v o lse do delta dq ks | B S H hd valid_len | scale dtype stream
+    "owlvit_pk_dq": [_P] * 9 + [_I] * 5 + [_F, _I, _P],
+    # the bf16 dq kernel's dynamic shared memory in bytes (no launch, no stream)
+    "owlvit_pk_dq_smem_bytes": [],
     # q k v lse do delta dk dv | B S H hd valid_len | scale dtype stream
     "owlvit_pk_dkv": [_P] * 8 + [_I] * 5 + [_F, _I, _P],
     # x h scale bias r y | N D | eps dtype stream

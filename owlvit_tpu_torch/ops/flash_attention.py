@@ -35,6 +35,7 @@ included, and `pk_bwd_mode` its backward mode (OWLVIT_PACKED_BWD).
 
 from __future__ import annotations
 
+import math
 import os
 from typing import Optional
 
@@ -307,6 +308,20 @@ def pk_bwd(q, k, v, o, lse, do, *, scale: float, num_heads: int,
 pk_bwd.launches = pk_bwd.transposed_launches = 0
 
 
+def scale_is_exact_in_bf16(scale: float) -> bool:
+    """Whether k * scale rounds to itself in bf16 for every bf16 k short of
+    underflow: a power of two in (0, 1] (hd**-0.5 = 1/8 at head dim 64)."""
+    return 0.0 < scale <= 1.0 and math.frexp(scale)[0] == 0.5
+
+
+def _k_scaled_scratch(k, scale: float):
+    """The bf16 dq kernel's scratch for k * scale, rounded once by a launch
+    before it (the TPU kernel's rounding point), or None where that
+    rounding is exact: the kernel then reads k and scales its fp32 scores
+    and dq instead, which gives the same bits."""
+    return None if scale_is_exact_in_bf16(scale) else torch.empty_like(k)
+
+
 def pk_dq(q, k, v, o, lse, do, *, scale: float, num_heads: int,
           valid_len: Optional[int] = None):
     """The split pair's first half, dq by query tile -> (dq [B, S, D] in the
@@ -325,9 +340,11 @@ def pk_dq(q, k, v, o, lse, do, *, scale: float, num_heads: int,
     valid = _valid(valid_len, S)
     delta = torch.empty((B, num_heads, S), dtype=torch.float32, device=q.device)
     dq = torch.empty_like(q)
+    ks = _k_scaled_scratch(k, scale) if q.dtype == torch.bfloat16 else None
     launch("owlvit_pk_dq", q.device,
            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-           do.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, S, num_heads, HEAD_DIM,
+           do.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+           None if ks is None else ks.data_ptr(), B, S, num_heads, HEAD_DIM,
            valid, float(scale), DTYPE_CODE[q.dtype])
     _count(pk_dq, num_heads)
     return dq, delta

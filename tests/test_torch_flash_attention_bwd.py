@@ -1,8 +1,9 @@
 """Port: the plain attention backward against `jax.vjp` of the JAX package's
 `flash_attention_packed` (the Pallas backward in interpret mode, in its
 modes "fused" and "both", against the port's `pk_bwd` and `pk_bwd_split`),
-the autograd Function on CPU against PyTorch's autograd through the plain
-forward, and the routing: the backward mode (`pk_bwd_mode` against
+the keys past valid_len that the dq kernel's copies no longer zero (large
+values there leave dq as zeros do), the autograd Function on CPU against
+PyTorch's autograd through the plain forward, and the routing: the backward mode (`pk_bwd_mode` against
 `_pk_bwd_mode`), the hint `layers.encoder` passes (against what the JAX
 package's `encoder` passes), the transposed and hybrid backward's split pair,
 and the wrappers' launch counters.
@@ -76,6 +77,56 @@ def test_plain_matches_pallas_bwd(dtype, mode, monkeypatch):
     dq, dk, dv = got
     assert not dq[:, VALID:].any()  # padded query rows contribute nothing
     assert not dk[:, VALID:].any() and not dv[:, VALID:].any()  # masked keys
+
+
+@pytest.mark.parametrize("dtype, fill", [("float32", 3e4), ("bfloat16", -1e4)])
+def test_pair_dq_ignores_the_keys_past_valid_len(dtype, fill, monkeypatch):
+    """The masking contract the dq kernel's copies rely on: keys in
+    [valid_len, S) holding large finite values (the caller's data, not
+    zeros) leave `pk_dq`'s dq bit-equal to the zero-padded input's, and both
+    hold against the Pallas `_pk_dq_kernel` (mode "both", interpret mode) at
+    that valid_len on the real query rows."""
+    monkeypatch.setenv("OWLVIT_PACKED_BWD", "both")
+    q, k, v, do = _inputs(5)
+    sign = np.sign(np.random.default_rng(6).normal(size=k[:, VALID:].shape))
+    k_big, v_big = k.copy(), v.copy()
+    k_big[:, VALID:], v_big[:, VALID:] = fill * sign, -fill * sign
+    k_zero, v_zero = k.copy(), v.copy()
+    k_zero[:, VALID:] = v_zero[:, VALID:] = 0.0
+    args = dict(scale=SCALE, num_heads=H, valid_len=VALID)
+    dqs = []
+    for kk, vv in ((k_big, v_big), (k_zero, v_zero)):
+        qt, kt, vt, dot = (torch.from_numpy(x).to(TDT[dtype]) for x in (q, kk, vv, do))
+        o, lse = tfa.pk_fwd(qt, kt, vt, **args)
+        dqs.append(tfa.pk_dq(qt, kt, vt, o, lse, dot, **args)[0])
+    assert torch.equal(dqs[0], dqs[1])
+    assert not dqs[0][:, VALID:].any()
+    for kk, vv in ((k_big, v_big), (k_zero, v_zero)):
+        ref = _jax_grads(q, kk, vv, do, dtype)[0][:, :VALID]
+        got = dqs[0].float().numpy()[:, :VALID]
+        if dtype == "float32":
+            np.testing.assert_allclose(got, ref, atol=2e-5, rtol=0)
+        else:
+            assert np.abs(got - ref).max() / np.abs(ref).max() <= 2e-2
+
+
+@pytest.mark.parametrize("scale, exact", [
+    (HD**-0.5, True), (0.5, True), (1.0, True), (2.0**-20, True),
+    (0.1, False), (48**-0.5, False), (2.0, False), (0.0, False), (-0.125, False),
+])
+def test_scale_exact_in_bf16(scale, exact):
+    """The dq kernel reads k and scales in fp32 only where bf16(k * scale)
+    is k * scale (a power of two in (0, 1]); elsewhere the wrapper hands it
+    the k * scale scratch. The premise, on every finite bf16 value of
+    magnitude 2^-100 .. 2^100: the rounding leaves such products alone."""
+    assert tfa.scale_is_exact_in_bf16(scale) is exact
+    k = torch.zeros((1, 8, HD), dtype=torch.bfloat16)
+    assert (tfa._k_scaled_scratch(k, scale) is None) is exact
+    if exact:
+        bits = torch.arange(0, 2**16, dtype=torch.int32).to(torch.int16)
+        x = bits.view(torch.bfloat16).float()
+        x = x[torch.isfinite(x) & (x.abs() >= 2.0**-100) & (x.abs() <= 2.0**100)]
+        assert torch.equal((x * scale).to(torch.bfloat16).float(), x * scale)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

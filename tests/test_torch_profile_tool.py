@@ -1,4 +1,5 @@
-"""The device-time helpers of tools/torch_serve_profile.py (CPU only)."""
+"""The pure helpers of tools/torch_serve_profile.py (device-time sums) and
+tools/torch_pk_bwd_profile.py (turn order, median and spread), on the CPU."""
 
 import importlib.util
 from pathlib import Path
@@ -31,3 +32,37 @@ def test_union_us(intervals, busy):
 ])
 def test_category(name, cat):
     assert prof.category(name) == cat
+
+
+_BWD_PATH = Path(__file__).resolve().parent.parent / "tools" / "torch_pk_bwd_profile.py"
+_bwd_spec = importlib.util.spec_from_file_location("torch_pk_bwd_profile", _BWD_PATH)
+bwd_prof = importlib.util.module_from_spec(_bwd_spec)
+_bwd_spec.loader.exec_module(bwd_prof)
+
+
+@pytest.mark.parametrize("names, rounds, order", [
+    (("baseline", "tree"), 1, ["baseline", "tree", "tree", "baseline"]),
+    (("a", "b", "c"), 1, ["a", "b", "c", "c", "b", "a"]),
+    (("baseline", "tree"), 2, ["baseline", "tree", "tree", "baseline"] * 2),
+])
+def test_in_turns_order(names, rounds, order):
+    """Each build is measured once on the way out and once on the way back,
+    in every round."""
+    calls = []
+
+    def measure(name):
+        calls.append(name)
+        return float(len(calls))
+
+    out = bwd_prof.in_turns(measure, names, rounds)
+    assert calls == order
+    assert out == {n: [float(i + 1) for i, c in enumerate(order) if c == n] for n in names}
+
+
+@pytest.mark.parametrize("readings, median, spread", [
+    ([2.0, 2.0], 2.0, 0.0),
+    ([1.0, 3.0], 2.0, 1.0),
+    ([4.0, 1.0, 2.0], 2.0, 1.5),
+])
+def test_summary(readings, median, spread):
+    assert bwd_prof.summary(readings) == {"median": median, "spread": spread}
