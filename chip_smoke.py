@@ -15,11 +15,15 @@ Phases, each printing its numbers on a line of its own:
      and blocks per SM (it must not spill).
   3. kernel: pk_fwd against its plain PyTorch version on the card at the
      B/32, B/16 and L/14 attention shapes (batch 4, valid_len < padded S),
-     bf16 and fp32, fixed-shift (C=20) and per-row-max softmax.
+     bf16 and fp32, fixed-shift (C=20) and per-row-max softmax; then bf16
+     at a B/16 layer's local shape under tp=2, [32, 2305, 384] with 6 heads
+     (timed beside scaled_dot_product_attention).
   4. kernel_bwd: pk_bwd (mode "fused") and the split pair pk_dq + pk_dkv
      (mode "both") against the plain version at the same shapes and at [8,
      2305, 768] unpadded, bf16 and fp32; two launches of the pair bit-equal;
-     the pair again at scale 0.1 (the dq kernel's k * scale scratch).
+     the pair again at scale 0.1 (the dq kernel's k * scale scratch); then
+     pk_bwd and the pair at the tp=2 local [32, 2305, 384] with 6 heads, as
+     at the train shape in phase 9.
   5. kernel_ln: add_ln forward and backward against their plain versions at
      [32*2305, 768] (the trained shape), [8*2305, 768], [4*3601, 1024]
      (L/14) and [2305, 768], bf16 and fp32: r exact, the backward's sums the
@@ -147,11 +151,25 @@ Phases, each printing its numbers on a line of its own:
      0.7-1.3), replayed from the same states: terms bit-equal. (e) A cached
      run with profile_dir: the Chrome trace of steps 1-2 names pk_fwd and
      pk_bwd; its device kernels summed by name per step.
+ 15. mesh: (a) a mesh of one rank on NCCL (create_mesh(1, 1, backend=
+     "nccl")): one B/16 bf16 step through the loss's count all_reduce, the
+     gradient all_reduce and the tensor-parallel Functions on groups of one,
+     bit-equal to the plain step (terms, gradients, parameters). (b) Two
+     ranks spawned on cuda:0 over gloo (NCCL refuses two ranks on one
+     device): dp=2 at a global batch of 32, uncached and cached (the device
+     pool of 64 images, 32 rows a rank, fill, fill, gather), and dp=1 x
+     tp=2 (6 heads a rank), 3 steps each in backward mode "both", and tp=2's
+     step 1 in fp32; each held against the single-device run of the same
+     global batches in this call (TOL_MESH: terms; step-1 gradient and the
+     update against the single-device bf16 run's own distance from fp32),
+     launches per rank, and each rank's step wall ("two ranks share one
+     card": no scaling figure).
 The kernels JSON (second-to-last line) gives each kernel's launches summed
 over the paths driven (serving, the open-vocabulary lanes, bulk_detect
 and the CLI's inference commands, the uncached and cached train runs, the
 three fine-tune runs, the exported programs and the CLI's evals through
-and beside them, the training options' drives, and for the transposed
+and beside them, the training options' drives, the mesh phase's runs (each
+rank's counts added), and for the transposed
 entries alone the drives of phase 6; each counted from 0 just
 before it and read just after, each launch once, where the wrapper makes it),
 its error, time, plain time, bound and library time at its main-path shape;
@@ -161,6 +179,7 @@ the device JSON. Any failure raises, so the exit code is non-zero.
 
 import contextlib
 import copy
+import dataclasses
 import gc
 import hashlib
 import importlib.util
@@ -171,6 +190,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+import types
 
 # bitwise-reproducible cuBLAS across the server's thread and the main thread,
 # for the bit-equality check of phase 5; a production server does not set it
@@ -178,6 +198,7 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from owlvit_tpu_torch import cli  # noqa: E402
@@ -189,6 +210,7 @@ from owlvit_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from owlvit_tpu_torch.ops import nms as nms_ops  # noqa: E402
 from owlvit_tpu_torch.ops.quant import dequantize_rows  # noqa: E402
 from owlvit_tpu_torch.ops.preprocess import normalize_image  # noqa: E402
+from owlvit_tpu_torch.parallel import create_mesh, shard_aligned_batches  # noqa: E402
 from owlvit_tpu_torch.serve import DetectorServer, _flatten_bucket, _size_to_model  # noqa: E402
 from owlvit_tpu_torch.train import Trainer  # noqa: E402
 from owlvit_tpu_torch.utils.config import (  # noqa: E402
@@ -286,6 +308,8 @@ TOL_HYBRID_GRAD = TOL_HYBRID_UPDATE = 1e-4
 # (fp32 outside the tensor cores for elementwise work).
 PEAK_BF16_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 PEAK_F32_FLOPS = 67e12
+# A B/16 layer's attention on one rank at tp=2: [B, 2305, 384], 6 heads of 64
+TP2_LOCAL = dataclasses.replace(get_config("b16").vision, hidden_size=384, num_heads=6)
 
 
 def check(ok, what):
@@ -548,6 +572,9 @@ def phase_kernel():
         emit("kernel", model=name, **row)
         del q, k, v
         torch.cuda.empty_cache()
+    # a B/16 layer's local shape at tp=2 on the mesh (phase 15): 6 of 12 heads
+    emit("kernel", model="b16_tp2_local", heads=TP2_LOCAL.num_heads,
+         **fwd_row(TP2_LOCAL, 32, None))
 
 
 def bwd_errors(got, want, valid):
@@ -632,9 +659,11 @@ def phase_kernel_bwd():
          valid_len=valid, pair_bf16=err)
     del q, k, v, do, o, lse, pair, again
     torch.cuda.empty_cache()
+    # the fused kernel and the pair at the tp=2 local shape, 6 heads
+    trained_shape_bwd(types.SimpleNamespace(vision=TP2_LOCAL), label="kernel_bwd_tp2_local")
 
 
-def trained_shape_bwd(cfg, batch=32, slice_=4):
+def trained_shape_bwd(cfg, batch=32, slice_=4, label="kernel_bwd_trained_shape"):
     """pk_bwd and the split pair (pk_dq, pk_dkv) at the train step's shape,
     bf16, per-row max, all 2305 tokens real. The plain versions (one [B, H,
     S, S] fp32 tensor is 8.2 GB at batch 32) run on batch slices of 4, for
@@ -719,7 +748,7 @@ def trained_shape_bwd(cfg, batch=32, slice_=4):
            "dkv": {"max_abs_err": max(err_pair["dk_max_abs"], err_pair["dv_max_abs"]),
                    "ms": dkv_ms, "plain_ms": dkv_plain_ms, "bound_ms": dkv_b[0],
                    "bound_by": dkv_b[1], "library_ms": lib, "library_op": pair_op}}
-    emit("kernel_bwd_trained_shape", **row)
+    emit(label, heads=H, **row)
     del q, k, v, do, o, lse, delta
     torch.cuda.empty_cache()
     return row
@@ -2104,13 +2133,13 @@ class StepRecorder:
         self.params = snapshot(trainer.params)
         step, state = trainer.train_step, trainer.state
 
-        def recorded_step(batch, mark=None):
+        def recorded_step(batch, mark=None, **kw):
             idxs = np.asarray(batch["indices"])
             fill = not trainer.filled[2 * idxs].all()
             if fill and self.first_fill is None:
                 self.first_fill = (idxs.copy(), batch["image"].clone())
             before = read_counts()
-            terms = step(batch, mark)
+            terms = step(batch, mark, **kw)
             torch.cuda.synchronize()
             launches = {k: v - before[k] for k, v in read_counts().items()}
             params = snapshot(trainer.params)
@@ -2278,20 +2307,22 @@ def hflip_recipe_run(train_ds, test_ds, batch, max_gt, L):
                     "banner": banner.strip().splitlines()[-1]}, total
 
 
-def b16_trainer(batch, max_gt, n_classes, *, model_kw=None, n_images=None, **training):
-    """A B/16 bf16 Trainer from seed 0 with the recipe's optimizer."""
-    m = {"trainable_last_k": 1, **(model_kw or {})}
+def b16_trainer(batch, max_gt, n_classes, *, model_kw=None, n_images=None, mesh=None,
+                **training):
+    """A B/16 bf16 Trainer from seed 0 with the recipe's optimizer (on
+    `mesh`, whose shape the training overrides give)."""
+    m = {"trainable_last_k": 1, "dtype": "bfloat16", **(model_kw or {})}
     config = Config(DataConfig(max_gt=max_gt),
                     TrainingConfig(**{"learning_rate": 3e-6, "weight_decay": 0.1,
                                       "batch_size": batch, "checkpoint_dir": None,
                                       "seed": 0, **training}),
-                    ModelConfig(name="b16", dtype="bfloat16", **m))
+                    ModelConfig(name="b16", **m))
     mcfg = get_config("b16")
     model = owlvit.init(mcfg, torch.Generator().manual_seed(0), num_queries=3 * n_classes,
                         device="cuda")
     return Trainer(config, model, n_classes, steps_per_epoch=2,
                    class_weights=np.linspace(0.5, 1.5, n_classes, dtype=np.float32),
-                   device="cuda", n_images=n_images)
+                   device="cuda", n_images=n_images, mesh=mesh)
 
 
 def counted_step(trainer, batch):
@@ -2524,6 +2555,241 @@ def phase_train_options(n_train=96, n_test=32, batch=32, max_gt=16):
     return total
 
 
+# Phase 15, the mesh. Two ranks share the one card over gloo (NCCL refuses
+# two ranks on a device; gloo copies CUDA tensors through the host), so no
+# wall here says anything of scaling. Backward mode "both" (the split pair):
+# the single-device run repeats bit-equal, so a difference is the mesh's.
+MESH_BATCH, MESH_STEPS, MESH_IMAGES, MESH_MAX_GT, MESH_CLASSES = 32, 3, 64, 64, 80
+# Each mesh run is held against the single-device run of the same global
+# batches in this call by (1) the per-step loss terms, max rel, (2) the
+# averaged gradient of step 1 (from the same parameters): L2 of the
+# difference over L2 of the single-device gradient, and (3) the trainable
+# parameters after 3 steps: L2 of the difference over L2 of the
+# single-device update; (2) and (3) over every trainable tensor but the
+# attention's key bias (its gradient is 0 in exact arithmetic).
+# At random weights the predicted boxes of neighbouring patches overlap
+# near the propagation's IoU 0.85, so a perturbation of the forward in its
+# last bits flips foreground patches: the terms move little, the gradient
+# of the heads and the queries a lot, and AdamW's first steps (nearly
+# sign(gradient) x lr) move every near-zero element either way. (3)'s
+# yardstick, measured in this call: how far the single-device bf16 run lies
+# from the same run in fp32 (the floor).
+# - dp=2, bf16: a rank's rows give the same forward bits as one device's
+#   batch (the matching does not move); each rank's weight gradients are
+#   rounded to bf16 before the two ranks' sum: (1) 2e-2 (the later steps'
+#   matching, as TOL_FUSED_TERMS), (2) 1e-2 (5x bf16's 2^-9), (3) the floor.
+# - tp=2, bf16: every row-parallel output (out, fc2) is two bf16 partial
+#   products summed in bf16, one rounding more than one device's product
+#   (Megatron and the JAX package's GSPMD reduce in the activation dtype):
+#   the forward's last bits move, so (1) 5e-2 and (3) 1.5 floors; (2) is
+#   printed, not held (the matching above).
+# - tp=2, fp32, step 1: nothing rounds to bf16, so the arithmetic of the
+#   split is held: (1) and (2) 1e-4 (two partial products and the reduce
+#   summed in another order).
+TOL_MESH = {"dp": {"terms": 2e-2, "grad": 1e-2, "floors": 1.0},
+            "tp": {"terms": 5e-2, "grad": None, "floors": 1.5},
+            "f32": {"terms": 1e-4, "grad": 1e-4, "floors": None}}
+# (name, mesh, the batches, dtype, steps)
+MESH_RUNS = (("dp2", (2, 1), "uncached", "bfloat16", MESH_STEPS),
+             ("dp2_cached", (2, 1), "cached", "bfloat16", MESH_STEPS),
+             ("tp2", (1, 2), "uncached", "bfloat16", MESH_STEPS),
+             ("tp2_f32", (1, 2), "uncached", "float32", 1))
+
+
+def mesh_data(rng):
+    """MESH_IMAGES images (flat uint8) with ~7 boxes each, their rows the
+    train set's 0..63, and the global batches of each run: uncached, 3
+    random batches of 32; cached,
+    the shard-aligned batches of 64 rows (rank r's 16 rows within its 32)
+    as fill, fill, gather."""
+    S = get_config("b16").vision.image_size
+    data = train_batch(rng, MESH_IMAGES, MESH_MAX_GT, S, MESH_CLASSES)
+    data["indices"] = np.arange(MESH_IMAGES)
+    aligned = list(shard_aligned_batches(MESH_IMAGES, MESH_BATCH, 2, seed=0))
+    uncached = [rng.choice(MESH_IMAGES, MESH_BATCH, replace=False) for _ in range(MESH_STEPS)]
+    return data, {"cached": [aligned[0], aligned[1], aligned[0]], "uncached": uncached}
+
+
+def mesh_run(data, orders, order, mesh=None, shape=(1, 1), dtype="bfloat16"):
+    """MESH_STEPS steps of a B/16 trainer (seed 0) in dtype, each train_step
+    given the global batch of orders[order] -> terms, full trainable
+    tensors on the host (at the start, after step 1's gradients, at the
+    end) and their names, launches, step walls in ms."""
+    cached = order == "cached"
+    training = {"mesh_data": shape[0], "mesh_model": shape[1]}
+    if cached:
+        training.update(cache_backbone=True, cache_backbone_store="device")
+    trainer = b16_trainer(MESH_BATCH, MESH_MAX_GT, MESH_CLASSES, mesh=mesh,
+                          n_images=MESH_IMAGES if cached else None,
+                          model_kw={"dtype": dtype}, **training)
+    names = {id(p): n for n, p in trainer.model.named_parameters()}
+
+    def host(tensors):
+        return [t.cpu().clone() for t in trainer._full([t.detach() for t in tensors])]
+
+    start = host(trainer.params)
+    torch.cuda.synchronize()
+    reset_counts()
+    terms, walls, grads = [], [], None
+    for i, sel in enumerate(orders[order]):
+        b = {k: data[k][sel] for k in ("labels", "boxes", "gt_mask", "indices")}
+        if not cached or i < 2:  # the gathered step reads no pixels
+            b["image"] = data["image"][sel]
+        t0 = time.perf_counter()
+        terms.append(trainer.train_step(b).tolist())
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:  # the averaged gradient of step 1, from the same parameters
+            grads = host([p.grad for p in trainer.params])
+    launches = read_counts()
+    out = {"terms": terms, "params": host(trainer.params), "start": start, "grads": grads,
+           "launches": launches, "names": [names[id(p)] for p in trainer.params],
+           "step_wall_ms": walls,
+           "pool_rows": None if trainer.pool is None else trainer.pool.shape[0]}
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_rank(rank, world, rdzv, out_dir):
+    """One of the two ranks of phase 15 (spawned): every MESH_RUNS run on
+    its mesh over a gloo group on cuda:0; its results to out_dir."""
+    os.environ["OWLVIT_PACKED_BWD"] = "both"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{rdzv}", rank=rank,
+                            world_size=world)
+    try:
+        data, orders = mesh_data(np.random.default_rng(15))
+        out = {}
+        for name, shape, order, dtype, steps in MESH_RUNS:
+            mesh = create_mesh(*shape, device_type="cuda", backend="gloo",
+                               device=torch.device("cuda", 0))
+            out[name] = mesh_run(data, {order: orders[order][:steps]}, order, mesh, shape,
+                                 dtype=dtype)
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_diff(got, want, key_bias=".attn.k.bias"):
+    """got against want (over got's steps): the per-step terms' largest
+    relative difference, the step-1 gradients' and the end parameters' L2
+    difference (the latter over want's update), all trainable tensors but
+    the key bias; and the 4 tensors whose step-1 gradient differs most,
+    relative to each one's own L2."""
+    keep = [i for i, n in enumerate(want["names"]) if not n.endswith(key_bias)]
+
+    def l2(tensors):
+        return sum(float(t.double().square().sum()) for t in tensors) ** 0.5
+
+    steps = len(got["terms"])
+    t_got, t_want = np.asarray(got["terms"]), np.asarray(want["terms"][:steps])
+    worst = max(keep, key=lambda i: (got["params"][i] - want["params"][i]).abs().max().item())
+    per_tensor = sorted(((l2([got["grads"][i] - want["grads"][i]]) / max(l2([want["grads"][i]]),
+                                                                          1e-30),
+                          want["names"][i], l2([want["grads"][i]])) for i in keep), reverse=True)
+    return {
+        "grad_step1_worst_tensors": [{"name": n, "l2_rel": r, "grad_l2": g}
+                                     for r, n, g in per_tensor[:4]],
+        "terms_max_rel": float(np.max(np.abs(t_got - t_want) / np.maximum(np.abs(t_want), 1e-12))),
+        "grad_step1_l2_rel": l2([got["grads"][i] - want["grads"][i] for i in keep])
+        / l2([want["grads"][i] for i in keep]),
+        "update_l2_rel": l2([got["params"][i] - want["params"][i] for i in keep])
+        / l2([want["params"][i] - want["start"][i] for i in keep]),
+        "param_max_abs": (got["params"][worst] - want["params"][worst]).abs().max().item(),
+        "param_max_abs_name": want["names"][worst]}
+
+
+def phase_mesh():
+    """Phase 15: (a) a mesh of one rank on NCCL, one step bit-equal to the
+    plain single-device step; (b) two ranks on cuda:0 over gloo, dp=2
+    uncached and cached and dp=1 x tp=2, each held against the
+    single-device run of the same global batches (TOL_MESH)."""
+    data, orders = mesh_data(np.random.default_rng(15))
+    launches = dict.fromkeys(KERNELS, 0)
+    with switches(OWLVIT_PACKED_BWD="both"):
+        ref = {o: mesh_run(data, orders, o) for o in ("uncached", "cached")}
+        ref["f32"] = mesh_run(data, orders, "uncached", dtype="float32")
+        for r in ref.values():
+            check(np.isfinite(r["terms"]).all(), f"single-device mesh reference {r['terms']}")
+            launches = {k: launches[k] + r["launches"][k] for k in KERNELS}
+        floor = mesh_diff(ref["uncached"], ref["f32"])
+        emit("mesh", part="floor", what="one device, bf16 against fp32", **floor)
+        # (a): the step through the data all_reduce, the loss's count
+        # all_reduce and the TP Functions on groups of one, on NCCL
+        mesh = create_mesh(1, 1, device_type="cuda", backend="nccl")
+        try:
+            check(dist.get_backend() == "nccl", dist.get_backend())
+            one = mesh_run(data, {"one": orders["uncached"][:1]}, "one", mesh)
+        finally:
+            dist.destroy_process_group()
+        plain = mesh_run(data, {"one": orders["uncached"][:1]}, "one")
+        bit_equal = (one["terms"] == plain["terms"] and all(
+            torch.equal(a, b) for a, b in zip(one["params"] + one["grads"],
+                                              plain["params"] + plain["grads"])))
+        emit("mesh", part="nccl_world_of_one", bit_equal=bit_equal, terms=one["terms"],
+             launches=one["launches"], step_wall_ms=one["step_wall_ms"])
+        check(bit_equal, f"the NCCL mesh of one rank differs from one device: "
+                         f"{one['terms']} {plain['terms']}")
+        check(one["launches"] == plain["launches"], f"{one['launches']} {plain['launches']}")
+        launches = {k: launches[k] + one["launches"][k] + plain["launches"][k] for k in KERNELS}
+        del one, plain
+        torch.cuda.empty_cache()
+    # (b): the two ranks, spawned; a rank that raises fails the spawn
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        torch.multiprocessing.start_processes(
+            mesh_rank, args=(2, os.path.join(tmp, "rdzv"), tmp), nprocs=2,
+            start_method="spawn", join=True)
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+    emit("mesh", part="spawn", seconds=spawn_s, backend="gloo, two ranks on cuda:0")
+    L = get_config("b16").vision.num_layers
+    failed = []
+    for name, shape, order, dtype, steps in MESH_RUNS:
+        cached = order == "cached"
+        want = ref["f32" if dtype == "float32" else order]
+        tol = TOL_MESH["f32" if dtype == "float32" else "tp" if shape[1] > 1 else "dp"]
+        tol_terms, tol_grad = tol["terms"], tol["grad"]
+        tol_update = tol["floors"] and tol["floors"] * floor["update_l2_rel"]
+        per_rank = []
+        for rank, res in enumerate(ranks):
+            got = res[name]
+            diff = mesh_diff(got, want)
+            # each rank launches the layers it runs: its rows, or its heads
+            fills = 2 if cached else steps
+            ok = (np.isfinite(got["terms"]).all() and diff["terms_max_rel"] <= tol_terms
+                  and (tol_grad is None or diff["grad_step1_l2_rel"] <= tol_grad)
+                  and (tol_update is None or diff["update_l2_rel"] <= tol_update)
+                  and got["launches"]["pk_fwd"] == fills * L + (steps - fills)
+                  and got["launches"]["pk_dq"] == got["launches"]["pk_dkv"] == steps)
+            if not ok:
+                failed.append(f"{name} rank {rank}")
+            launches = {k: launches[k] + got["launches"][k] for k in KERNELS}
+            if dtype == "bfloat16" and not cached:  # the distance to exact
+                diff["vs_f32"] = {k: v for k, v in mesh_diff(got, ref["f32"]).items()
+                                  if k in ("grad_step1_l2_rel", "update_l2_rel",
+                                           "grad_step1_worst_tensors")}
+            per_rank.append({"rank": rank, **diff, "terms": got["terms"],
+                             "launches": {k: got["launches"][k]
+                                          for k in ("pk_fwd", "pk_bwd", "pk_dq", "pk_dkv")},
+                             "step_wall_ms_two_ranks_share_one_card": got["step_wall_ms"],
+                             "pool_rows": got["pool_rows"]})
+        if not all(torch.equal(a, b) for a, b in zip(ranks[0][name]["params"],
+                                                     ranks[1][name]["params"])):
+            failed.append(f"{name}: the ranks' parameters differ")
+        emit("mesh", part=name, mesh=list(shape), global_batch=MESH_BATCH, dtype=dtype,
+             cached=cached, tol_terms_rel=tol_terms, tol_grad_step1_l2_rel=tol_grad,
+             tol_update_l2_rel=tol_update,
+             single_device_terms=want["terms"],
+             single_device_step_wall_ms=want["step_wall_ms"], ranks=per_rank)
+    check(not failed, f"mesh runs outside their tolerance: {failed}")
+    return launches
+
+
 def main():
     for name in SWITCHES:  # the default paths run with the switches off
         os.environ.pop(name, None)
@@ -2560,9 +2826,10 @@ def main():
         run_launches = phase_run(run_dir)
         export_launches = phase_export(run_dir)
     options_launches = phase_train_options()
+    mesh_launches = phase_mesh()
     launches = {k: sum(run[k] for run in (serve_launches, open_vocab_launches, train_launches,
                                           cached_launches, run_launches, export_launches,
-                                          options_launches))
+                                          options_launches, mesh_launches))
                 for k in KERNELS}
     # the drives of the transposed Function
     for k in ("transposed_fwd", "transposed_dq", "transposed_dkv"):

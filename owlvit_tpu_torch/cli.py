@@ -18,21 +18,59 @@ train, eval, infer, bulk-infer, serve and export run on the card unless
 --device cpu is given, and raise where there is no card. An exported
 artifact (torch.export) calls the port's custom ops, so loading it needs
 this package (train/export.py).
+
+train and eval on a mesh (training.mesh_data x training.mesh_model > 1)
+run one process per rank under torchrun:
+
+    torchrun --nproc_per_node=4 -m owlvit_tpu_torch.cli train --config c.yaml
+
+Each process reads RANK, WORLD_SIZE and LOCAL_RANK, joins the process group
+(nccl on the card, gloo with --device cpu) and takes cuda:LOCAL_RANK; only
+rank 0 prints the results. A mesh config started without a process group
+of its size is refused (the Trainer's ValueError), never run on one device.
+The other commands build their model on one device, whatever the mesh.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import os
 import sys
 
 
-def _trainer(args):
+def _trainer(args, mesh: bool = False):
+    """The Trainer of --config; with mesh (train, eval) on the config's
+    mesh, joining torchrun's process group when the config asks for more
+    than one device; otherwise on one device."""
+    import torch
+
     from owlvit_tpu_torch.train import Trainer
     from owlvit_tpu_torch.utils.config import load_config
 
-    return Trainer.from_config(load_config(args.config), workdir=args.workdir,
-                               device=args.device)
+    cfg = load_config(args.config)
+    t = cfg.training
+    if not mesh:
+        cfg.training = dataclasses.replace(t, mesh_data=1, mesh_model=1)
+    elif t.mesh_data * t.mesh_model > 1 and "WORLD_SIZE" in os.environ:
+        import torch.distributed as dist
+
+        from owlvit_tpu_torch.parallel.mesh import DEFAULT_BACKEND
+
+        device = torch.device(args.device)
+        if device.type == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        if not dist.is_initialized():
+            dist.init_process_group(DEFAULT_BACKEND[device.type], init_method="env://")
+    return Trainer.from_config(cfg, workdir=args.workdir, device=args.device)
+
+
+def _is_main() -> bool:
+    """Rank 0 of a mesh run, or the only process: the one that prints."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def _build_tokenizer(cfg, mcfg, *, fallback: bool):
@@ -59,13 +97,14 @@ def _build_tokenizer(cfg, mcfg, *, fallback: bool):
 
 
 def _cmd_train(args):
-    metrics = _trainer(args).run()
-    print(json.dumps({k: v for k, v in metrics.items()
-                      if not hasattr(v, "shape")}, indent=2))
+    metrics = _trainer(args, mesh=True).run()
+    if _is_main():
+        print(json.dumps({k: v for k, v in metrics.items()
+                          if not hasattr(v, "shape")}, indent=2))
 
 
 def _cmd_eval(args):
-    trainer = _trainer(args)
+    trainer = _trainer(args, mesh=True)
     infer_fn = None
     if args.from_export:
         # eval through the loaded serving artifact: the same protocol, so
@@ -81,8 +120,9 @@ def _cmd_eval(args):
             infer_fn = load_exported(args.from_export)
         print(f"eval through exported artifact: {args.from_export}", flush=True)
     metrics = trainer.evaluate(infer_fn=infer_fn, save_detections=args.save_detections)
-    print(json.dumps({k: (v.tolist() if hasattr(v, "tolist") else v)
-                      for k, v in metrics.items()}, indent=2))
+    if _is_main():
+        print(json.dumps({k: (v.tolist() if hasattr(v, "tolist") else v)
+                          for k, v in metrics.items()}, indent=2))
 
 
 def _cmd_infer(args):
@@ -420,7 +460,19 @@ def main(argv=None):
     sp.set_defaults(fn=_cmd_convert)
 
     args = p.parse_args(argv)
-    return args.fn(args)
+    had_group = _has_group()
+    try:
+        return args.fn(args)
+    finally:
+        if _has_group() and not had_group:  # the group _trainer joined
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _has_group() -> bool:
+    dist = sys.modules.get("torch.distributed")
+    return dist is not None and dist.is_initialized()
 
 
 if __name__ == "__main__":

@@ -6,7 +6,10 @@ __init__ imports its jax loader, so the port cannot import the original).
 included, so a cache written by either package is read by the other
 (tests/test_torch_act_cache.py holds this). Added for the port:
 `write_tensor` and `read_tensor`, which move torch tensors, bf16 as its
-uint16 bit view, so that the port needs no ml_dtypes.
+uint16 bit view, so that the port needs no ml_dtypes; and for a store that
+several processes share (the trainer on a mesh), `opened`, `create` (one
+process makes the files before any write) and `reopen` (the others open
+them after a barrier), so that no two processes create or truncate them.
 
 With the reference's freeze set (models.py:173-184) the ViT layers 0..L-k-1
 are constant during fine-tuning, yet the reference recomputes them for every
@@ -103,6 +106,24 @@ class ActivationCache:
         with open(meta_p, "w") as f:
             json.dump(self._meta, f)
 
+    @property
+    def opened(self) -> bool:
+        """Whether the files are open (found valid, or created)."""
+        return self._arr is not None
+
+    def create(self, row_shape, dtype: torch.dtype) -> None:
+        """Create (truncate) the files for rows of row_shape in dtype now,
+        instead of at the first write."""
+        self._create(tuple(row_shape), self._torch_name(dtype))
+
+    def reopen(self) -> None:
+        """Open the files another process created for this fingerprint;
+        raises when there are none."""
+        self._try_open_existing()
+        if self._arr is None:
+            raise RuntimeError(f"no activation store at {self.base} for this "
+                               "fingerprint")
+
     # ------------------------------------------------------------- data API
 
     @staticmethod
@@ -147,12 +168,17 @@ class ActivationCache:
             raise RuntimeError("bfloat16 cache requires ml_dtypes")
         return self._arr[idx].view(view_dt)
 
+    @staticmethod
+    def _torch_name(dtype: torch.dtype) -> str:
+        name = str(dtype).removeprefix("torch.")
+        if name not in _STORE:
+            raise ValueError(f"unsupported activation dtype {name}")
+        return name
+
     def write_tensor(self, indices, acts: torch.Tensor) -> None:
         """write() for a torch tensor [len(indices), S, D] (bf16/f16/f32) on
         any device: copied to the host, bf16 through its bit view."""
-        name = str(acts.dtype).removeprefix("torch.")
-        if name not in _STORE:
-            raise ValueError(f"unsupported activation dtype {name}")
+        name = self._torch_name(acts.dtype)
         host = acts.detach().to("cpu").contiguous()
         if name == "bfloat16":
             host = host.view(torch.int16)

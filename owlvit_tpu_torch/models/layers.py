@@ -14,6 +14,15 @@ routes them) and the forward-only kernel wrapper (`pk_fwd`) otherwise.
 the JAX package's does, and with remat recomputes each block in the
 backward (the JAX package's jax.checkpoint around the block). Left out for
 now: the quantized and fast-softmax variants.
+
+Tensor parallelism (parallel/sharding.py::shard_params, the JAX package's
+Megatron specs under GSPMD): `Attention` and `MLP` given the "model"
+process group keep their local heads (H / tp) and hidden units (F / tp).
+The column-parallel input (q/k/v, fc1) passes `copy_to_model` (identity
+forward, all_reduce backward), the row-parallel output (out, fc2)
+`reduce_from_model` (all_reduce forward, identity backward), with the
+replicated bias added once after the reduce. LayerNorms and the fused
+add+LayerNorm stay replicated.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ from owlvit_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_hybrid, flash_attention_packed,
     hybrid_supported, packed_supported, pk_fwd, pk_fwd_plain)
 from owlvit_tpu_torch.ops.fused_ln import add_ln
+from owlvit_tpu_torch.parallel.sharding import all_reduce_sum_
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -83,6 +93,58 @@ class LayerNorm(nn.Module):
         return y.to(x.dtype)
 
 
+def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of x over the group, as a new tensor (gloo's on the host)."""
+    return all_reduce_sum_(x.clone(memory_format=torch.contiguous_format), group)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """A column-parallel layer's input: identity forward; the backward sums
+    the input's gradient over the "model" group (each rank's heads add
+    their part)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """A row-parallel layer's output: the partial products summed over the
+    "model" group; identity backward (the output is replicated)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    return _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    return _ReduceFromModel.apply(x, group)
+
+
+def _row_parallel(linear: "Linear", x: torch.Tensor, group, tp: int) -> torch.Tensor:
+    """The row-parallel product: x [.., d_in / tp] @ this rank's weight
+    slice, summed over the group, plus the replicated bias once. With one
+    rank the sum is the identity and the bias joins the product, as the
+    single-device layer adds it."""
+    if tp == 1:
+        return reduce_from_model(linear(x), group)
+    y = reduce_from_model(F.linear(x, linear.weight.to(x.dtype)), group)
+    return y + linear.bias.to(y.dtype)
+
+
 class Attention(nn.Module):
     """Multi-head self-attention over packed [B, S, D] activations."""
 
@@ -94,6 +156,17 @@ class Attention(nn.Module):
         self.k = Linear(dim, dim, generator=generator)
         self.v = Linear(dim, dim, generator=generator)
         self.out = Linear(dim, dim, generator=generator)
+        self.tp_group, self.tp = None, 1  # the "model" group, its size
+
+    def tensor_parallel(self, group, tp: int) -> None:
+        """Run on this rank's H / tp heads (its q/k/v and out slices, which
+        parallel/sharding.py::shard_params keeps) over the "model" group."""
+        if self.tp_group is not None:
+            raise ValueError("this attention is tensor-parallel already")
+        if self.num_heads % tp:
+            raise ValueError(f"{self.num_heads} heads do not divide by model={tp}")
+        self.num_heads //= tp
+        self.tp_group, self.tp = group, tp
 
     def forward(self, x: torch.Tensor, *, impl: str = "auto",
                 static_max: Optional[float] = None,
@@ -113,12 +186,15 @@ class Attention(nn.Module):
         keeps it out of every grad graph. bwd_hint: the packed backward's
         mode ("fused" or "both", `pk_bwd_mode`; `encoder` sets it). All S
         tokens are real: the token axis is never padded."""
-        B, S, D = x.shape
+        if self.tp_group is not None:
+            x = copy_to_model(x, self.tp_group)
+        q, k, v = self.q(x), self.k(x), self.v(x)
+        # the local heads' width: D, or D / tp under tensor parallelism
+        B, S, D = q.shape
         H = self.num_heads
         scale = (D // H) ** -0.5
-        q, k, v = self.q(x), self.k(x), self.v(x)
         if bias is not None:
-            return self.out(_biased_attention(q, k, v, H, scale, bias))
+            return self._out(_biased_attention(q, k, v, H, scale, bias))
         recorded = torch.is_grad_enabled() and q.requires_grad
         if recorded and static_max is not None:
             raise ValueError("static_max (the fixed-shift softmax) is for "
@@ -138,7 +214,12 @@ class Attention(nn.Module):
         else:
             o, _ = pk_fwd(q, k, v, scale=scale, num_heads=self.num_heads,
                           static_max=static_max)
-        return self.out(o)
+        return self._out(o)
+
+    def _out(self, o: torch.Tensor) -> torch.Tensor:
+        if self.tp_group is None:
+            return self.out(o)
+        return _row_parallel(self.out, o, self.tp_group, self.tp)
 
 
 def _biased_attention(q, k, v, num_heads: int, scale: float,
@@ -159,9 +240,20 @@ class MLP(nn.Module):
         super().__init__()
         self.fc1 = Linear(dim, hidden, generator=generator)
         self.fc2 = Linear(hidden, dim, generator=generator)
+        self.tp_group, self.tp = None, 1  # the "model" group, its size
+
+    def tensor_parallel(self, group, tp: int) -> None:
+        """Run on this rank's F / tp hidden units (its fc1 and fc2 slices)
+        over the "model" group."""
+        if self.tp_group is not None:
+            raise ValueError("this MLP is tensor-parallel already")
+        self.tp_group, self.tp = group, tp
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(quick_gelu(self.fc1(x)))
+        if self.tp_group is None:
+            return self.fc2(quick_gelu(self.fc1(x)))
+        h = quick_gelu(self.fc1(copy_to_model(x, self.tp_group)))
+        return _row_parallel(self.fc2, h, self.tp_group, self.tp)
 
 
 class EncoderBlock(nn.Module):

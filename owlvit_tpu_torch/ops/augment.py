@@ -33,10 +33,21 @@ from .preprocess import triangle, weight_mat_at
 _LUMA = np.asarray([0.299, 0.587, 0.114], np.float32)
 
 
+def _rows(n: int, share) -> tuple:
+    """(draws to make, the images' rows among them): n and all n, or for a
+    share (start, total) of a larger batch, total and [start, start + n)."""
+    if share is None:
+        return n, slice(0, n)
+    start, total = share
+    return total, slice(start, start + n)
+
+
 def _uniform(generator: torch.Generator, n: int, lo: float, hi: float,
-             device) -> torch.Tensor:
-    """n fp32 draws from [lo, hi) on the host generator, on `device`."""
-    u = torch.rand(n, generator=generator, dtype=torch.float32)
+             device, share=None) -> torch.Tensor:
+    """n fp32 draws from [lo, hi) on the host generator, on `device` (the
+    rows of `share` among its draws, see augment_batch)."""
+    total, rows = _rows(n, share)
+    u = torch.rand(total, generator=generator, dtype=torch.float32)[rows]
     return (lo + (hi - lo) * u).to(device)
 
 
@@ -56,10 +67,11 @@ def apply_hflip(images: torch.Tensor, boxes: torch.Tensor, flip: torch.Tensor):
 
 
 def hflip(generator: torch.Generator, images: torch.Tensor, boxes: torch.Tensor,
-          prob: float = 0.5):
+          prob: float = 0.5, share=None):
     """Per-image random horizontal flip with probability prob. images [B,
     H, W, 3], boxes [B, G, 4] normalized xyxy -> (images, boxes)."""
-    flip = torch.rand(images.shape[0], generator=generator) < prob
+    total, rows = _rows(images.shape[0], share)
+    flip = torch.rand(total, generator=generator)[rows] < prob
     return apply_hflip(images, boxes, flip.to(images.device))
 
 
@@ -84,7 +96,7 @@ def apply_color(images: torch.Tensor, fb, fc, fs) -> torch.Tensor:
 
 
 def color_jitter(generator: torch.Generator, images: torch.Tensor,
-                 strength: float) -> torch.Tensor:
+                 strength: float, share=None) -> torch.Tensor:
     """Brightness, contrast and saturation, each scaled by a per-image
     factor drawn from [1 - strength, 1 + strength]. images float [B, H, W,
     3] in [0, 255]."""
@@ -92,7 +104,7 @@ def color_jitter(generator: torch.Generator, images: torch.Tensor,
         return images
     B = images.shape[0]
     fb, fc, fs = (_uniform(generator, B, 1.0 - strength, 1.0 + strength,
-                           images.device) for _ in range(3))
+                           images.device, share) for _ in range(3))
     return apply_color(images, fb, fc, fs)
 
 
@@ -135,28 +147,34 @@ def apply_scale_window(images: torch.Tensor, boxes: torch.Tensor,
 
 def scale_jitter(generator: torch.Generator, images: torch.Tensor,
                  boxes: torch.Tensor, gt_mask: torch.Tensor, scale_min: float,
-                 scale_max: float, min_visibility: float = 0.1):
+                 scale_max: float, min_visibility: float = 0.1, share=None):
     """Random zoom: s < 1 crops a random s-window (zoom in), s > 1 shrinks
     the image onto a zero canvas (zoom out)."""
     if scale_min == 1.0 and scale_max == 1.0:
         return images, boxes, gt_mask
     B, dev = images.shape[0], images.device
-    s = _uniform(generator, B, scale_min, scale_max, dev)
+    s = _uniform(generator, B, scale_min, scale_max, dev, share)
     # the window's origin: in [0, 1 - s] when cropping, [1 - s, 0] zoomed out
-    x0 = torch.clamp(1.0 - s, max=0.0) + (1.0 - s).abs() * _uniform(generator, B, 0, 1, dev)
-    y0 = torch.clamp(1.0 - s, max=0.0) + (1.0 - s).abs() * _uniform(generator, B, 0, 1, dev)
+    x0 = torch.clamp(1.0 - s, max=0.0) + (1.0 - s).abs() * _uniform(generator, B, 0, 1, dev, share)
+    y0 = torch.clamp(1.0 - s, max=0.0) + (1.0 - s).abs() * _uniform(generator, B, 0, 1, dev, share)
     return apply_scale_window(images, boxes, gt_mask, x0, y0, s, min_visibility)
 
 
 def augment_batch(generator: torch.Generator, images: torch.Tensor,
                   boxes: torch.Tensor, gt_mask: torch.Tensor, *,
                   hflip_prob: float = 0.5, color_strength: float = 0.0,
-                  scale_min: float = 1.0, scale_max: float = 1.0):
+                  scale_min: float = 1.0, scale_max: float = 1.0, share=None):
     """The whole pipeline: images uint8/float [B, H, W, 3] in [0, 255] ->
     (float32 images in [0, 255], boxes, gt_mask); hflip, then colour, then
-    scale. Feed the images to ops.preprocess.normalize_image."""
+    scale. Feed the images to ops.preprocess.normalize_image.
+
+    share (start, total): the images are rows [start, start + B) of a batch
+    of total (a rank's rows of a global batch on a mesh). Every parameter
+    is drawn for the whole batch and these rows keep theirs, so the images
+    get the bits they would get in one batch on one device."""
     images = images.float()
     if hflip_prob > 0.0:
-        images, boxes = hflip(generator, images, boxes, hflip_prob)
-    images = color_jitter(generator, images, color_strength)
-    return scale_jitter(generator, images, boxes, gt_mask, scale_min, scale_max)
+        images, boxes = hflip(generator, images, boxes, hflip_prob, share)
+    images = color_jitter(generator, images, color_strength, share)
+    return scale_jitter(generator, images, boxes, gt_mask, scale_min, scale_max,
+                        share=share)

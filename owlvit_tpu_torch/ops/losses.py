@@ -24,7 +24,10 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+from owlvit_tpu_torch.parallel.sharding import all_reduce_sum_
 
 from . import boxes as box_ops
 from . import matcher
@@ -90,7 +93,8 @@ def push_pull_loss(pred_sims: torch.Tensor, pred_boxes: torch.Tensor,
                    gt_mask: torch.Tensor, n_classes: int,
                    class_weights: Optional[torch.Tensor] = None, *,
                    iou_propagation_threshold: float = 0.85,
-                   mark: Optional[Callable[[str], None]] = None) -> dict:
+                   mark: Optional[Callable[[str], None]] = None,
+                   data_group=None) -> dict:
     """Batched detection loss.
 
     pred_sims [B, P, C] raw query-bank similarities; pred_boxes [B, P, 4]
@@ -98,7 +102,14 @@ def push_pull_loss(pred_sims: torch.Tensor, pred_boxes: torch.Tensor,
     [B, G] bool; class_weights [C] or None. All on one device. Returns
     dict(loss_ce, loss_bg, loss_bbox, loss_giou) of fp32 scalars. mark, if
     given, is called as the cost matrix ("cost"), the host's matching and
-    propagation ("host") and the loss terms ("loss") are issued."""
+    propagation ("host") and the loss terms ("loss") are issued.
+
+    data_group: on a mesh, the "data" process group when this rank holds
+    B / dp images of a global batch. The normalisers (num_boxes, n_fg,
+    n_bg) are then summed over the group (no gradient), as the JAX package
+    counts them over the global batch, and each term is dp times this
+    rank's share of the global term: their mean over the group (the
+    trainer's gradient average) is the global term and its gradient."""
     B, P, C = pred_sims.shape
     sims = pred_sims.float()
     boxes = pred_boxes.float()
@@ -122,15 +133,20 @@ def push_pull_loss(pred_sims: torch.Tensor, pred_boxes: torch.Tensor,
     mask = gt_mask.bool()
     gt_boxes = gt_boxes.float()
     src = torch.gather(boxes, 1, idx[..., None].expand(B, idx.shape[1], 4))
-    num_boxes = mask.sum().clamp(min=1).float()
+    fg = tc != n_classes
+    counts = torch.stack([mask.sum(), fg.sum(), (~fg).sum()]).float()
+    share = 1.0
+    if data_group is not None:
+        all_reduce_sum_(counts, data_group)
+        share = float(dist.get_world_size(data_group))
+    num_boxes, n_fg, n_bg = counts.clamp(min=1).unbind()
     l1 = (src - gt_boxes).abs().sum(-1)
     zero = torch.zeros((), device=dev)
-    loss_bbox = torch.where(mask, l1, zero).sum() / num_boxes
+    loss_bbox = share * torch.where(mask, l1, zero).sum() / num_boxes
     giou = box_ops.elementwise_giou(src, gt_boxes)
-    loss_giou = torch.where(mask, 1.0 - giou, zero).sum() / num_boxes
+    loss_giou = share * torch.where(mask, 1.0 - giou, zero).sum() / num_boxes
 
     x = sims.abs()
-    fg = tc != n_classes
     onehot = F.one_hot(tc, n_classes + 1)[..., :n_classes].float()  # bg -> 0s
     bce_fg = _bce(x, onehot)
     bce_bg = _bce(x, torch.zeros_like(x))
@@ -140,11 +156,9 @@ def push_pull_loss(pred_sims: torch.Tensor, pred_boxes: torch.Tensor,
         bce_bg = bce_bg * w
     per_patch_fg = _focal_mod(bce_fg).sum(-1)
     per_patch_bg = _focal_mod(bce_bg).sum(-1)
-    n_fg = fg.sum().clamp(min=1).float()
-    n_bg = (~fg).sum().clamp(min=1).float()
     terms = {
-        "loss_ce": torch.where(fg, per_patch_fg, zero).sum() / n_fg,
-        "loss_bg": torch.where(~fg, per_patch_bg, zero).sum() / n_bg,
+        "loss_ce": share * torch.where(fg, per_patch_fg, zero).sum() / n_fg,
+        "loss_bg": share * torch.where(~fg, per_patch_bg, zero).sum() / n_bg,
         "loss_bbox": loss_bbox,
         "loss_giou": loss_giou,
     }

@@ -62,11 +62,34 @@ activation dtype, or int8 with one fp32 scale per token
 whose rows are not all filled runs the prefix, stores its rows and trains on
 the exact prefix output; a filled batch gathers its rows from the store.
 
+A mesh (training.mesh_data x training.mesh_model > 1, or a mesh the caller
+passes): one process per rank on torch.distributed (parallel/mesh.py), the
+JAX package's GSPMD run with explicit collectives.
+- The encoder blocks are tensor-parallel over "model" (shard_params before
+  the optimizer is built, so AdamW's state, the EMA and the grad_accum mean
+  hold this rank's slices); the heads and the query bank are replicated, so
+  every model rank computes them and the host matcher runs on each.
+- Each data rank takes B / dp rows of the global batch. The loss counts its
+  normalisers over "data" (ops/losses.py), the randomness (augment_hflip's
+  flips, augment's parameters) is drawn for the global batch and the rank
+  keeps its rows, and the trainable gradients (with grad_accum, the
+  accumulated mean on the update's micro-step) are averaged over "data" by
+  one all_reduce before AdamW: the single-device trajectory, up to
+  summation order.
+- Cached, the device pool holds the rank's N / dp rows (local_gather /
+  local_scatter) and the sampler is shard-aligned (shard_aligned_batches);
+  a train set that does not divide by mesh_data takes the disk store, which
+  rank 0 creates and every rank fills and reads at its own rows. Everywhere
+  else every rank draws the plain per-epoch shuffle and takes its rows.
+- evaluate gathers the detections over "data" so that every rank computes
+  the single-device mAP; rank 0 alone writes the JSONL, TensorBoard, debug
+  images, checkpoints (full tensors, the tensor-parallel slices gathered:
+  they restore under any mesh and on one device) and the synthetic set.
+
 Not in the port yet, and refused with NotImplementedError when a config
-asks for them: a mesh, and the device-resident pixel pre-stage
-(training.stage_pixels "on"; "auto" resolves to off on a GPU, as it does
-off-TPU in the JAX package). Everything runs on the card unless the caller
-asks for the CPU.
+asks for it: the device-resident pixel pre-stage (training.stage_pixels
+"on"; "auto" resolves to off on a GPU, as it does off-TPU in the JAX
+package). Everything runs on the card unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -80,6 +103,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from owlvit_tpu_torch.data import DetectionDataset, batch_iterator, prefetch_to_device
@@ -96,6 +120,8 @@ from owlvit_tpu_torch.ops.flash_attention import resolve_static_max
 from owlvit_tpu_torch.ops.map_metric import MeanAveragePrecision
 from owlvit_tpu_torch.ops.preprocess import normalize_image
 from owlvit_tpu_torch.ops.quant import dequantize_rows, quantize_rows
+from owlvit_tpu_torch.parallel import mesh as mesh_lib
+from owlvit_tpu_torch.parallel import sharding
 from owlvit_tpu_torch.utils.config import Config, ModelConfig, TrainingConfig
 from owlvit_tpu_torch.utils.logging import JSONLLogger, LossAccumulator, ProgressFormatter
 
@@ -119,8 +145,6 @@ AUTO_POOL_BYTES_CPU = 10e9
 _STAGE_OFF, _STAGE_ON = ("off", "false", "0", "none", ""), ("on", "true", "1")
 
 _NOT_PORTED = (
-    ("a mesh (training.mesh_data x training.mesh_model > 1)",
-     lambda t, m: t.mesh_data * t.mesh_model > 1),
     ("training.stage_pixels: on (the device-resident pixel pre-stage)",
      lambda t, m: _stage_pixels(t) in _STAGE_ON),
 )
@@ -169,6 +193,40 @@ def _device(device) -> torch.device:
         raise RuntimeError("Trainer: no CUDA device; pass device='cpu' to run "
                            "on the CPU")
     return device
+
+
+def _mesh(t: TrainingConfig, device: torch.device, mesh=None):
+    """The run's mesh: the caller's, else one over the process group when
+    training.mesh_data x mesh_model is more than one device, else None (one
+    device). The JAX package's refusals: a mesh larger or smaller than the
+    ranks there are, and a batch that does not divide by mesh_data."""
+    d, m = t.mesh_data, t.mesh_model
+    if mesh is None:
+        if d * m == 1:
+            return None
+        world = mesh_lib.world_size()
+        if d * m != world:
+            raise ValueError(f"mesh {d}x{m} needs {d * m} devices, have {world} "
+                             "(start one process per device, e.g. under torchrun)")
+    elif tuple(mesh.shape) != (d, m):
+        raise ValueError(f"the mesh is {tuple(mesh.shape)}, training.mesh_data x "
+                         f"mesh_model is {d}x{m}")
+    if t.batch_size % d:
+        raise ValueError(f"training.batch_size={t.batch_size} must divide by "
+                         f"mesh_data={d}")
+    return mesh if mesh is not None else mesh_lib.create_mesh(d, m, device_type=device.type)
+
+
+def _rank_device(device: torch.device, mesh) -> torch.device:
+    """On a mesh, "cuda" is this rank's card (create_mesh made it current)."""
+    if mesh is not None and device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _is_main() -> bool:
+    """Rank 0, or the only process."""
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def _tokenizer(m: ModelConfig, max_len: int, vocab_size: int):
@@ -273,18 +331,33 @@ class Trainer:
     store's fingerprint, so that a changed set never reads stale rows.
 
     device: the card unless the caller asks for "cpu"; raises where there
-    is no card."""
+    is no card.
+
+    mesh: a parallel.create_mesh DeviceMesh of training.mesh_data x
+    mesh_model, or None, when the trainer makes one over the process group
+    if the config asks for more than one device (see the module docstring);
+    a mesh of one rank takes the mesh path with groups of one. On a mesh,
+    train_step takes the global batch and keeps this rank's rows (run
+    loads only those and passes sharded=True); the model's encoder blocks
+    are sharded in place."""
 
     def __init__(self, config: Config, model: owlvit.OwlViT, n_classes: int, *,
                  steps_per_epoch: int, class_weights=None, device="cuda",
                  n_images: Optional[int] = None, workdir: Optional[str] = None,
-                 dataset_id=None):
+                 dataset_id=None, mesh=None):
         t, m = config.training, config.model
         _validate(t, m)
         if model.queries is None:
             raise ValueError("the model has no query bank to fine-tune")
         self.cfg = config
         self.device = _device(device)
+        self.mesh = _mesh(t, self.device, mesh)
+        self.device = _rank_device(self.device, self.mesh)
+        self.is_main = _is_main()
+        self.data_group = None if self.mesh is None else self.mesh.get_group("data")
+        self.data_rank, self.dp = (0, 1) if self.mesh is None else mesh_lib.coords(
+            self.mesh, "data")
+        self.tp = 1 if self.mesh is None else mesh_lib.coords(self.mesh, "model")[1]
         self.workdir = "." if workdir is None else workdir
         # set by with_data: what run() and evaluate() read
         self.train_ds = self.test_ds = self.labelmap = None
@@ -297,8 +370,13 @@ class Trainer:
         # eval: every layer in one forward, no gradient (JAX: eval_step)
         self.eval_cfg = self.model_cfg.replace(trainable_last_k=None)
         self.model = model.to(self.device)
+        if self.mesh is not None:
+            sharding.shard_params(self.model, self.mesh)
         self.n_classes = n_classes
         self.params = partition_params(self.model, m.trainable_last_k)
+        names = {id(p): n for n, p in self.model.named_parameters()}
+        # each trainable parameter's spec (its AdamW state, EMA and mean too)
+        self.param_specs = [sharding.spec_for(names[id(p)]) for p in self.params]
         self.opt = torch.optim.AdamW(self.params, lr=t.learning_rate,
                                      betas=(0.9, 0.999), eps=1e-8,
                                      weight_decay=t.weight_decay)
@@ -331,21 +409,26 @@ class Trainer:
 
     @classmethod
     def from_config(cls, config: Config, workdir: str = ".", *,
-                    device="cuda") -> "Trainer":
+                    device="cuda", mesh=None) -> "Trainer":
         """The JAX package's `Trainer(config, workdir)`: writes the
         synthetic set when data.synthetic_root is set (pointing data.* at
-        it), loads the labelmap and the train and test DetectionDatasets,
-        then `with_data` does the rest."""
+        it; rank 0 writes it on a mesh), loads the labelmap and the train
+        and test DetectionDatasets, then `with_data` does the rest."""
         t, d = config.training, config.data
         _validate(t, config.model)
-        _device(device)
+        mesh = _mesh(t, _device(device), mesh)
         if d.synthetic_root:
             from owlvit_tpu_torch.data import synthetic  # PIL: only here
 
-            paths = synthetic.generate(
-                d.synthetic_root, n_train=d.num_train_images,
-                n_test=d.num_test_images, n_classes=d.synthetic_classes,
-                seed=t.seed)
+            paths = [None]
+            if _is_main():
+                paths[0] = synthetic.generate(
+                    d.synthetic_root, n_train=d.num_train_images,
+                    n_test=d.num_test_images, n_classes=d.synthetic_classes,
+                    seed=t.seed)
+            if mesh is not None:  # the others read the set rank 0 wrote
+                dist.broadcast_object_list(paths, src=0)
+            paths = paths[0]
             d.images_path = paths["images_dir"]
             d.train_annotations = paths["train"]
             d.test_annotations = paths["test"]
@@ -357,11 +440,11 @@ class Trainer:
                              native_decode=d.native_decode)
             for ann in (d.train_annotations, d.test_annotations))
         return cls.with_data(config, train_ds, test_ds, load_labelmap(d.labelmap),
-                             workdir, device=device)
+                             workdir, device=device, mesh=mesh)
 
     @classmethod
     def with_data(cls, config: Config, train_ds, test_ds, labelmap: dict,
-                  workdir: str = ".", *, device="cuda") -> "Trainer":
+                  workdir: str = ".", *, device="cuda", mesh=None) -> "Trainer":
         """A trainer over ready datasets (DetectionDataset's interface:
         __len__, load_batch, class_scales; `items` and `images_dir` for the
         disk store's fingerprint) and labelmap {id: name}: the parameters
@@ -369,10 +452,12 @@ class Trainer:
         when they lack one (the text tower over 3 prompts per class; a
         random bank when a checkpoint will overwrite it), the class weights
         (use_class_weight), the optimizer, the latest checkpoint and the
-        mode banner."""
+        mode banner. On a mesh the bank is rank 0's, broadcast."""
         t, m = config.training, config.model
         _validate(t, m)
         device = _device(device)
+        mesh = _mesh(t, device, mesh)
+        device = _rank_device(device, mesh)
         os.makedirs(workdir, exist_ok=True)
         n_classes = len(labelmap)
         mcfg = get_config(m.name, dtype=m.dtype, attention_impl=m.attention_impl,
@@ -399,31 +484,43 @@ class Trainer:
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)
                 bank_secs = time.perf_counter() - t0
-            model.queries = nn.Parameter(bank.to(device))
+            bank = bank.to(device)
+            if mesh is not None:
+                sharding.broadcast_(bank, dist.group.WORLD)
+            model.queries = nn.Parameter(bank)
         cached = t.cache_backbone
+        n = len(train_ds)
+        if cached and t.mesh_data > 1 and n % t.mesh_data == 0:
+            # the shard-aligned sampler drops the per-shard ragged remainder
+            # (JAX: _lr_schedule; the store may still fall back to disk,
+            # whose plain sampler differs by at most one step an epoch)
+            dp = t.mesh_data
+            spe = max(1, (n // dp) // max(1, t.batch_size // dp))
+        else:
+            spe = max(1, n // t.batch_size)
         trainer = cls(
             config, model, n_classes,
             # the schedule counts optimizer updates (JAX: _lr_schedule)
-            steps_per_epoch=max(1, max(1, len(train_ds) // t.batch_size) // t.grad_accum),
+            steps_per_epoch=max(1, spe // t.grad_accum),
             class_weights=(train_ds.class_scales(n_classes)
                            if t.use_class_weight else None),
-            device=device, n_images=len(train_ds) if cached else None,
-            workdir=workdir,
-            dataset_id=(_dataset_id(train_ds)
-                        if cached and t.cache_backbone_store != "device" else None))
+            device=device, n_images=n if cached else None,
+            workdir=workdir, mesh=mesh,
+            dataset_id=(_dataset_id(train_ds) if cached and (
+                t.cache_backbone_store != "device" or mesh is not None) else None))
         trainer.train_ds, trainer.test_ds, trainer.labelmap = train_ds, test_ds, labelmap
         trainer.query_bank_secs = bank_secs
         if t.checkpoint_dir:
             state = ckpt.restore(t.checkpoint_dir)
             if state is not None:
                 trainer.load_state(state)
-                print(f"resumed from step {trainer.step}", flush=True)
+                trainer._say(f"resumed from step {trainer.step}")
                 ema = (ckpt.restore_tree(t.checkpoint_dir, trainer.step)
                        if trainer.ema is not None else None)
                 if ema is not None:
-                    for e, r in zip(trainer.ema, ema):
+                    for e, r in zip(trainer.ema, trainer._local(ema)):
                         e.copy_(r)
-                    print("resumed EMA params", flush=True)
+                    trainer._say("resumed EMA params")
         cache_desc = "act-cache off"
         if cached:
             cache_desc = (
@@ -432,38 +529,82 @@ class Trainer:
                 + f", pool {trainer.pool_bytes / 1e9:.2f} GB"
                 + (f" of a {trainer.pool_budget / 1e9:.2f} GB auto budget"
                    if t.cache_backbone_store == "auto" else "") + ")")
-        print(f"trainer: model={m.name} dtype={m.dtype} "
-              f"trainable_last_k={m.trainable_last_k} | {device} | {cache_desc} | "
-              f"batch={t.batch_size}"
-              + (f" | grad_accum={t.grad_accum} (eff. batch "
-                 f"{t.grad_accum * t.batch_size})" if t.grad_accum > 1 else "")
-              + (f" | ema={t.ema_decay}" + (" (eval on EMA)" if t.ema_eval else "")
-                 if t.ema_decay else "")
-              + (" | augment ON" if t.augment else "")
-              + (" | hflip ON (cache-compatible)" if t.augment_hflip else "")
-              + (" | remat" if m.remat else ""), flush=True)
+        mesh_desc = (f"mesh data={t.mesh_data}x model={t.mesh_model} "
+                     f"({dist.get_backend()})" if mesh is not None else "single-device")
+        trainer._say(f"trainer: model={m.name} dtype={m.dtype} "
+                     f"trainable_last_k={m.trainable_last_k} | {device} | {mesh_desc} | "
+                     f"{cache_desc} | batch={t.batch_size}"
+                     + (f" | grad_accum={t.grad_accum} (eff. batch "
+                        f"{t.grad_accum * t.batch_size})" if t.grad_accum > 1 else "")
+                     + (f" | ema={t.ema_decay}" + (" (eval on EMA)" if t.ema_eval else "")
+                        if t.ema_decay else "")
+                     + (" | augment ON" if t.augment else "")
+                     + (" | hflip ON (cache-compatible)" if t.augment_hflip else "")
+                     + (" | remat" if m.remat else ""))
         return trainer
+
+    def _say(self, line: str) -> None:
+        """Print a line of the run's log, from rank 0 only on a mesh."""
+        if self.is_main:
+            print(line, flush=True)
 
     def state(self) -> dict:
         """What a checkpoint holds: every parameter (model), the AdamW state,
         the micro-steps and the updates done, and with grad_accum the
-        accumulation in progress (its micro-steps and gradient mean)."""
-        return {"model": self.model.state_dict(),
-                "optimizer": self.opt.state_dict(), "step": self.step,
+        accumulation in progress (its micro-steps and gradient mean). Full
+        tensors: under tensor parallelism every rank calls this (the slices
+        are gathered over "model"), so that the checkpoint restores under
+        any mesh and on one device."""
+        opt = self.opt.state_dict()
+        model, grad_acc = self.model.state_dict(), self.grad_acc
+        if self.tp > 1:
+            model = {k: sharding.gather_tensor(v, sharding.spec_for(k), self.mesh)
+                     for k, v in model.items()}
+            # new dicts: state_dict() shares each parameter's state dict
+            opt["state"] = {i: {k: sharding.gather_tensor(v, self.param_specs[i], self.mesh)
+                                if torch.is_tensor(v) and v.dim() else v
+                                for k, v in st.items()}
+                            for i, st in opt["state"].items()}
+            grad_acc = None if grad_acc is None else self._full(grad_acc)
+        return {"model": model, "optimizer": opt, "step": self.step,
                 "updates": self.updates, "mini_step": self.mini_step,
-                "grad_acc": self.grad_acc}
+                "grad_acc": grad_acc}
 
     def load_state(self, state: dict) -> None:
         """Copy a checkpoint's state in (parameters in place, so the
-        optimizer keeps its references)."""
-        self.model.load_state_dict(state["model"])
-        self.opt.load_state_dict(state["optimizer"])
+        optimizer keeps its references); under tensor parallelism, this
+        rank's slices of its full tensors."""
+        model, opt = state["model"], state["optimizer"]
+        if self.tp > 1:
+            model = {k: sharding.shard_tensor(v, sharding.spec_for(k), self.mesh)
+                     for k, v in model.items()}
+            opt = {**opt, "state": {
+                i: {k: sharding.shard_tensor(v, self.param_specs[int(i)], self.mesh)
+                    if torch.is_tensor(v) and v.dim() else v for k, v in st.items()}
+                for i, st in opt["state"].items()}}
+        self.model.load_state_dict(model)
+        self.opt.load_state_dict(opt)
         self.step = int(state["step"])
         self.updates = int(state.get("updates", self.step))
         self.mini_step = int(state.get("mini_step", 0))
         if self.grad_acc is not None and state.get("grad_acc") is not None:
-            for a, g in zip(self.grad_acc, state["grad_acc"]):
+            for a, g in zip(self.grad_acc, self._local(state["grad_acc"])):
                 a.copy_(g)
+
+    def _full(self, tensors: list) -> list:
+        """Full tensors from this rank's slices of a list in self.params'
+        order (the EMA, the grad_accum mean); a collective over "model"."""
+        if self.tp == 1:
+            return list(tensors)
+        return [sharding.gather_tensor(x, s, self.mesh)
+                for x, s in zip(tensors, self.param_specs)]
+
+    def _local(self, tensors: list) -> list:
+        """This rank's slices of full tensors in self.params' order."""
+        if self.tp == 1:
+            return list(tensors)
+        return [sharding.shard_tensor(x, s, self.mesh)
+                for x, s in zip(tensors, self.param_specs)]
 
     # ------------------------------------------------------ activation cache
 
@@ -490,9 +631,18 @@ class Trainer:
         if not n_images or n_images < 1:
             raise ValueError("training.cache_backbone needs n_images, the "
                              "number of images in the train set")
-        # augment_hflip: rows 2i (as is) and 2i+1 (x-mirrored)
+        if self.mesh is not None and store != "disk" and n_images % self.dp:
+            # the sharded pool owns rows contiguously per rank; a set that
+            # does not divide by mesh_data would drop its remainder from
+            # every epoch under the aligned sampler (JAX: the same fallback)
+            store = "disk"
+            self._say(f"cache_backbone: {n_images} images do not divide by "
+                      f"mesh_data={self.dp} -> disk store")
+        # augment_hflip: rows 2i (as is) and 2i+1 (x-mirrored); interleaved,
+        # so a rank's images own both their rows in the sharded pool
         self.pool_rows = (2 if self.hflip else 1) * n_images
-        self.pool_bytes = self.act_pool_bytes(self.pool_rows, qdt)
+        # one rank's rows: the device pool holds N / dp of them
+        self.pool_bytes = self.act_pool_bytes(self.pool_rows // self.dp, qdt)
         self.pool_budget = auto_pool_budget(self.device)
         if store == "auto":
             store = "device" if self.pool_bytes <= self.pool_budget else "disk"
@@ -534,13 +684,17 @@ class Trainer:
             os.makedirs(workdir, exist_ok=True)
             self.act_cache = ActivationCache(
                 os.path.join(workdir, f"backbone_{m.name}"), n_images, fp)
+            if self.mesh is not None:
+                # every rank has opened what exists before rank 0 may
+                # create the files (_disk_write)
+                dist.barrier()
 
     def _init_pool(self, row_shape, dtype) -> None:
         """Zero-filled device pool of pool_rows rows (n_images, twice that
-        with augment_hflip), allocated whole: [N, S, D] in the activation
-        dtype, or {"q": int8 [N, S, D], "s": fp32 [N, S]} with
-        cache_store_dtype int8."""
-        shape = (self.pool_rows, *row_shape)
+        with augment_hflip; a rank's pool_rows / dp on a mesh), allocated
+        whole: [N, S, D] in the activation dtype, or {"q": int8 [N, S, D],
+        "s": fp32 [N, S]} with cache_store_dtype int8."""
+        shape = (self.pool_rows // self.dp, *row_shape)
         if self.store_dtype == "int8":
             self.pool = {"q": torch.zeros(shape, dtype=torch.int8, device=self.device),
                          "s": torch.zeros(shape[:-1], dtype=torch.float32,
@@ -549,24 +703,38 @@ class Trainer:
             self.pool = torch.zeros(shape, dtype=dtype, device=self.device)
         self.pool_dtype = dtype
 
-    def pool_scatter(self, rows: torch.Tensor, acts: torch.Tensor) -> None:
+    def _scatter(self, pool: torch.Tensor, rows, x: torch.Tensor) -> None:
+        if self.mesh is None:
+            pool.index_copy_(0, torch.as_tensor(rows).to(self.device), x)
+        else:
+            sharding.local_scatter(pool, torch.as_tensor(rows).cpu().numpy(), x, self.mesh)
+
+    def _gather(self, pool: torch.Tensor, rows) -> torch.Tensor:
+        if self.mesh is None:
+            return pool.index_select(0, torch.as_tensor(rows).to(self.device))
+        return sharding.local_gather(pool, torch.as_tensor(rows).cpu().numpy(), self.mesh)
+
+    def pool_scatter(self, rows, acts: torch.Tensor) -> None:
         """Store acts [B, S, D] at pool rows (in place: the pool is written,
-        not copied, unlike the JAX package's functional .at[].set)."""
+        not copied, unlike the JAX package's functional .at[].set). rows:
+        global row indices (numpy or a tensor); on a mesh this rank's, which
+        local_scatter addresses."""
         if self.store_dtype == "int8":
             q, scale = quantize_rows(acts)
-            self.pool["q"].index_copy_(0, rows, q)
-            self.pool["s"].index_copy_(0, rows, scale)
+            self._scatter(self.pool["q"], rows, q)
+            self._scatter(self.pool["s"], rows, scale)
         else:
-            self.pool.index_copy_(0, rows, acts)
+            self._scatter(self.pool, rows, acts)
 
-    def pool_gather(self, rows: torch.Tensor) -> torch.Tensor:
+    def pool_gather(self, rows) -> torch.Tensor:
         """The pool rows [B, S, D] in the activation dtype (dequantized
-        from int8 with cache_store_dtype int8)."""
+        from int8 with cache_store_dtype int8); rows as pool_scatter takes
+        them."""
         if self.store_dtype == "int8":
-            return dequantize_rows(self.pool["q"].index_select(0, rows),
-                                   self.pool["s"].index_select(0, rows),
+            return dequantize_rows(self._gather(self.pool["q"], rows),
+                                   self._gather(self.pool["s"], rows),
                                    self.pool_dtype)
-        return self.pool.index_select(0, rows)
+        return self._gather(self.pool, rows)
 
     def _image(self, batch) -> torch.Tensor:
         image = _tensor(batch["image"], self.device, torch.uint8)
@@ -596,7 +764,6 @@ class Trainer:
                 mark("input")
                 acts = self.act_cache.read_tensor(idxs).to(self.device)
             else:
-                rows = torch.from_numpy(rows).to(self.device)
                 mark("input")
                 acts = self.pool_gather(rows)
             mark("gather")
@@ -610,23 +777,40 @@ class Trainer:
                                          normalize_image(image.flip(2)))
         mark("prefix")
         if disk:
-            self.act_cache.write_tensor(idxs, acts)
+            self._disk_write(idxs, acts)
             mark("scatter")
             return acts
         if self.pool is None:
             self._init_pool(acts.shape[1:], acts.dtype)
         if flip is None:
-            self.pool_scatter(torch.from_numpy(idxs).to(self.device), acts)
+            self.pool_scatter(idxs, acts)
             self.filled[idxs] = True
             mark("scatter")
             return acts  # the exact prefix output trains this step
-        self.pool_scatter(torch.from_numpy(2 * idxs).to(self.device), acts)
-        self.pool_scatter(torch.from_numpy(2 * idxs + 1).to(self.device), acts_f)
+        self.pool_scatter(2 * idxs, acts)
+        self.pool_scatter(2 * idxs + 1, acts_f)
         self.filled[2 * idxs] = self.filled[2 * idxs + 1] = True
         mark("scatter")
-        acts = self.pool_gather(torch.from_numpy(rows).to(self.device))
+        acts = self.pool_gather(rows)
         mark("gather")
         return acts
+
+    def _disk_write(self, idxs, acts: torch.Tensor) -> None:
+        """Store the batch's rows in the disk store. On a mesh rank 0
+        creates its files at the first write (every rank reaches it at the
+        same step: no row is stored yet), then each rank writes its own
+        rows, once for its "data" rank (model rank 0): the tensor-parallel
+        ranks of one data rank hold the same rows."""
+        if self.mesh is not None:
+            if not self.act_cache.opened:
+                if self.is_main:
+                    self.act_cache.create(acts.shape[1:], acts.dtype)
+                dist.barrier()
+                if not self.is_main:
+                    self.act_cache.reopen()
+            if self.mesh.get_local_rank("model"):
+                return
+        self.act_cache.write_tensor(idxs, acts)
 
     # ------------------------------------------------------------- the step
 
@@ -646,7 +830,8 @@ class Trainer:
         return torch.Generator().manual_seed(int(seed.generate_state(1, np.uint64)[0]))
 
     def train_step(self, batch: dict,
-                   mark: Optional[Callable[[str], None]] = None) -> np.ndarray:
+                   mark: Optional[Callable[[str], None]] = None, *,
+                   sharded: bool = False) -> np.ndarray:
         """One micro-step on batch {"image": uint8 [B, S*S*3] or [B, S, S,
         3], "labels": [B, G], "boxes": [B, G, 4] xyxy in [0, 1], "gt_mask":
         [B, G]} -> the loss terms [4] in TERM_KEYS order: an optimizer
@@ -659,14 +844,24 @@ class Trainer:
         issued: "input" (the batch on the device), then uncached "forward";
         cached, a batch with rows to fill "prefix" and "scatter", a stored
         batch "gather", then "forward" (the tail and the heads); then
-        "cost", "host", "loss", "backward", "optimizer"."""
+        "cost", "host", "loss", "backward", "optimizer".
+
+        On a mesh the batch is the global one, of which this rank keeps its
+        rows, or with sharded=True this rank's rows already; the terms
+        returned are the global batch's, the same on every rank."""
         mark = mark or (lambda name: None)
         t = self.cfg.training
         dev = self.device
+        if self.mesh is not None and not sharded:
+            batch = sharding.shard_batch(batch, self.mesh)
         labels = _tensor(batch["labels"], dev, torch.int64)
         gt_boxes = _tensor(batch["boxes"], dev, torch.float32)
         gt_mask = _tensor(batch["gt_mask"], dev, torch.bool)
-        flip = self._sample_flips(labels.shape[0]) if self.hflip else None
+        # this rank's rows of the global batch, whose randomness is drawn
+        B = labels.shape[0]
+        share = (self.data_rank * B, self.dp * B)
+        flip = (self._sample_flips(self.dp * B)[share[0]:share[0] + B]
+                if self.hflip else None)
         if flip is not None:
             flip_dev = torch.from_numpy(flip).to(dev)
         if self.act_store is None:
@@ -678,7 +873,7 @@ class Trainer:
                 image, gt_boxes, gt_mask = aug_ops.augment_batch(
                     self._aug_generator(), image, gt_boxes, gt_mask,
                     hflip_prob=t.aug_hflip, color_strength=t.aug_color,
-                    scale_min=t.aug_scale_min, scale_max=t.aug_scale_max)
+                    scale_min=t.aug_scale_min, scale_max=t.aug_scale_max, share=share)
         else:
             acts = self._cached_acts(batch, mark, flip)
             if flip is not None:  # the gathered rows are mirrored already
@@ -694,28 +889,41 @@ class Trainer:
         mark("forward")
         terms = loss_ops.push_pull_loss(sims, boxes, labels, gt_boxes, gt_mask,
                                         self.n_classes, self.class_weights,
-                                        mark=mark)
+                                        mark=mark, data_group=self.data_group)
         loss_ops.total_loss(terms).backward()
         mark("backward")
         self._update()
         mark("optimizer")
         self.step += 1
-        return torch.stack([terms[k].detach() for k in TERM_KEYS]).cpu().numpy()
+        out = torch.stack([terms[k].detach() for k in TERM_KEYS])
+        if self.mesh is not None:  # each rank's terms are dp x its share
+            out = sharding.all_reduce_sum_(out, self.data_group) / self.dp
+        return out.cpu().numpy()
 
     def _update(self) -> None:
         """The optimizer update from the gradients of this micro-step: AdamW
         at once, or with grad_accum k optax.MultiSteps' cadence (the grads
         join the accumulation's running mean; on its k-th micro-step AdamW
         steps on the mean and the mean is reset). The EMA follows each
-        update."""
+        update. On a mesh the gradients of the update (with grad_accum the
+        accumulated mean) are averaged over "data" first, in one
+        all_reduce."""
         accum = self.cfg.training.grad_accum
+        grads = [p.grad for p in self.params]
         if accum > 1:
             n = torch.full((), self.mini_step + 1.0, device=self.device)
-            for a, p in zip(self.grad_acc, self.params):
-                a.add_((p.grad - a) / n)
+            for a, g in zip(self.grad_acc, grads):
+                a.add_((g - a) / n)
             self.mini_step = (self.mini_step + 1) % accum
             if self.mini_step:
                 return
+            grads = self.grad_acc
+        if self.mesh is not None:
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            sharding.all_reduce_sum_(flat, self.data_group).div_(self.dp)
+            for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+                g.copy_(part.view_as(g))
+        if accum > 1:
             for a, p in zip(self.grad_acc, self.params):
                 p.grad.copy_(a)
                 a.zero_()
@@ -752,6 +960,42 @@ class Trainer:
                 batch.pop("image", None)
             yield batch
 
+    def _shard_aligned_order(self) -> bool:
+        """The JAX package's one condition for the shard-aligned batch
+        order: the rank-local gathers of the sharded device pool. Elsewhere
+        the plain per-epoch shuffle keeps a mesh run the single-device
+        trajectory."""
+        return self.mesh is not None and self.act_store == "device"
+
+    def _steps_per_epoch_micro(self) -> int:
+        """Train batches (micro-steps) an epoch under the active sampler:
+        the shard-aligned one drops the per-shard ragged remainder, the
+        plain shuffle the global one (resume arithmetic reads this)."""
+        t = self.cfg.training
+        n = len(self.train_ds)
+        if self._shard_aligned_order():
+            return max(1, (n // self.dp) // max(1, t.batch_size // self.dp))
+        return max(1, n // t.batch_size)
+
+    def _index_batches(self, epoch: int):
+        """On a mesh, this rank's rows of each global batch of the epoch
+        (shard-aligned, or the plain shuffle that batch_iterator draws with
+        the ragged remainder dropped); None on one device."""
+        if self.mesh is None:
+            return None
+        t = self.cfg.training
+        n = len(self.train_ds)
+        if self._shard_aligned_order():
+            batches = sharding.shard_aligned_batches(n, t.batch_size, self.dp,
+                                                     seed=t.seed + epoch)
+        else:
+            order = np.arange(n)
+            np.random.default_rng(t.seed + epoch).shuffle(order)
+            batches = (order[s:s + t.batch_size]
+                       for s in range(0, n - n % t.batch_size, t.batch_size))
+        rows = sharding.batch_rows(t.batch_size, self.mesh)
+        return [b[rows] for b in batches]
+
     def _need_data(self) -> None:
         if self.train_ds is None:
             raise ValueError("run() and evaluate() need the datasets: build the "
@@ -765,14 +1009,15 @@ class Trainer:
         last epoch. Returns the last eval's metrics."""
         self._need_data()
         t = self.cfg.training
+        main = self.is_main  # the writer of the run's files on a mesh
         logger = (JSONLLogger(os.path.join(self.workdir, t.log_file))
-                  if t.log_file else None)
+                  if t.log_file and main else None)
         acc = LossAccumulator()
         progress = ProgressFormatter()
         class_maps = {name: [] for name in self.labelmap.values()}
         last_val = {}
         tb = None
-        if t.tensorboard_dir:
+        if t.tensorboard_dir and main:
             from owlvit_tpu_torch.utils.tb_writer import TBWriter
 
             tb = TBWriter(os.path.join(self.workdir, t.tensorboard_dir))
@@ -790,17 +1035,15 @@ class Trainer:
 
         # a restored checkpoint at step k*spe means k epochs are done:
         # continue to n_epochs in all (steps and spe count micro-steps)
-        spe = max(1, len(self.train_ds) // t.batch_size)
+        spe = self._steps_per_epoch_micro()
         start_epoch = min(self.step // spe, t.n_epochs)
         if start_epoch:
-            print(
+            self._say(
                 f"resume: {start_epoch}/{t.n_epochs} epoch(s) already "
                 f"complete at step {self.step} — "
                 + ("nothing left to train; running eval"
                    if start_epoch >= t.n_epochs else
-                   f"continuing from epoch {start_epoch}"),
-                flush=True,
-            )
+                   f"continuing from epoch {start_epoch}"))
         if start_epoch >= t.n_epochs:
             last_val = self.evaluate(epoch=t.n_epochs - 1)
 
@@ -810,6 +1053,7 @@ class Trainer:
             ep_t0 = time.perf_counter()
             it = batch_iterator(self.train_ds, t.batch_size, shuffle=True,
                                 seed=t.seed + epoch, pad_final=False,
+                                index_batches=self._index_batches(epoch),
                                 want_image=self._want_image())
             if self.act_cache is not None:  # disk store: rows read host-side
                 it = self._with_cached_acts(it)
@@ -817,10 +1061,11 @@ class Trainer:
                     it, device=self.device, host_keys=_META_KEYS)):
                 for k in ("paths",) + _META_KEYS:
                     batch.pop(k, None)
-                if t.profile_dir and epoch == 0 and step_i == 1:
+                if t.profile_dir and epoch == 0 and step_i == 1 and main:
                     # step 0 warms up (the kernels' first launches, the pool)
                     profiler = self._start_profile()
-                terms = self.train_step(batch)  # ends in a device read
+                # ends in a device read; on a mesh the batch is the rank's rows
+                terms = self.train_step(batch, sharded=True)
                 acc.update(dict(zip(TERM_KEYS, terms.tolist())))
                 if profiler and step_i >= t.profile_steps:
                     self._stop_profile(profiler)
@@ -841,8 +1086,9 @@ class Trainer:
                 last_val = val_metrics
                 for i, name in sorted(self.labelmap.items()):
                     class_maps[name].append(float(val_metrics["map_per_class"][i]))
-                with open(os.path.join(self.workdir, "class_maps.json"), "w") as f:
-                    json.dump(class_maps, f)
+                if main:
+                    with open(os.path.join(self.workdir, "class_maps.json"), "w") as f:
+                        json.dump(class_maps, f)
 
             improved = False
             if run_eval:
@@ -853,7 +1099,8 @@ class Trainer:
                     evals_since_best += 1
 
             progress.update(epoch, train_metrics, val_metrics)
-            progress.print()
+            if main:
+                progress.print()
             if logger:
                 logger.log(
                     dict(epoch=epoch, step=self.step,
@@ -874,23 +1121,18 @@ class Trainer:
                 tb.flush()
             if (t.checkpoint_dir and t.checkpoint_every_epochs > 0  # 0: off
                     and (epoch + 1) % t.checkpoint_every_epochs == 0):
-                path = ckpt.save(t.checkpoint_dir, self.state())
-                if self.ema is not None:
-                    ckpt.save_tree(t.checkpoint_dir, self.step, self.ema)
-                print(f"checkpoint: {path}", flush=True)
+                path = self._save(t.checkpoint_dir)
+                self._say(f"checkpoint: {path}")
             if improved and t.keep_best:
                 bdir = os.path.join(t.checkpoint_dir, "best")
-                path = ckpt.save(bdir, self.state())
-                if self.ema is not None:
-                    ckpt.save_tree(bdir, self.step, self.ema)
-                ckpt.prune_steps(bdir, self.step)
-                print(f"best checkpoint (map={best_map:.4f}): {path}", flush=True)
+                path = self._save(bdir)
+                if main:
+                    ckpt.prune_steps(bdir, self.step)
+                self._say(f"best checkpoint (map={best_map:.4f}): {path}")
             if t.early_stop_patience and evals_since_best >= t.early_stop_patience:
-                print(
+                self._say(
                     f"early stop at epoch {epoch}: no mAP improvement in "
-                    f"{evals_since_best} eval(s) (best {best_map:.4f})",
-                    flush=True,
-                )
+                    f"{evals_since_best} eval(s) (best {best_map:.4f})")
                 break
 
         if tb:
@@ -898,6 +1140,21 @@ class Trainer:
         if logger:
             logger.close()
         return last_val
+
+    def _save(self, directory: str) -> str:
+        """A checkpoint of self.state() (and the EMA beside it) written by
+        rank 0; every rank takes part in gathering the full tensors, and
+        waits for the write, so that no rank reads a half-written step."""
+        state = self.state()
+        ema = None if self.ema is None else self._full(self.ema)
+        path = None
+        if self.is_main:
+            path = ckpt.save(directory, state)
+            if ema is not None:
+                ckpt.save_tree(directory, self.step, ema)
+        if self.mesh is not None:
+            dist.barrier()
+        return path
 
     def _start_profile(self) -> torch.profiler.profile:
         acts = [torch.profiler.ProfilerActivity.CPU]
@@ -978,17 +1235,24 @@ class Trainer:
         category_name, bbox [x, y, w, h] in pixels, score}); category_id
         is the dense 0..C-1 training id. With training.save_eval_images and
         an epoch, each test image is drawn with its detections under
-        <workdir>/debug/<epoch>/ (PIL, on the host)."""
+        <workdir>/debug/<epoch>/ (PIL, on the host).
+
+        On a mesh each data rank runs the forward on its rows of each
+        batch and the detections are gathered over "data", so every rank
+        computes the single-device metric; rank 0 writes the files."""
         self._need_data()
         t = self.cfg.training
         metric = MeanAveragePrecision(self.n_classes)
         debug_dir = None
-        if t.save_eval_images and epoch is not None:
+        if t.save_eval_images and epoch is not None and self.is_main:
             debug_dir = os.path.join(self.workdir, "debug", str(epoch))
             os.makedirs(debug_dir, exist_ok=True)
         detections = [] if save_detections else None
         img_idx = 0
         it = batch_iterator(self.test_ds, t.batch_size, shuffle=False)
+        if self.mesh is not None:  # this rank's pixels only
+            rows = sharding.batch_rows(t.batch_size, self.mesh)
+            it = ({**b, "image": b["image"][rows]} for b in it)
         # ground truth and image metadata are read on the host only
         batches = prefetch_to_device(
             it, device=self.device,
@@ -1005,6 +1269,10 @@ class Trainer:
             for bi, batch in enumerate(batches):
                 paths = batch.pop("paths", None)
                 packed = packed_fn(batch["image"])
+                if self.mesh is not None:
+                    packed = torch.cat(sharding.all_gather(
+                        torch.from_numpy(packed).to(self.device),
+                        self.data_group)).cpu().numpy()
                 widths, heights = batch["width"], batch["height"]
                 gt_boxes, gt_labels, gt_mask = batch["boxes"], batch["labels"], batch["gt_mask"]
                 for i, valid in enumerate(batch["image_valid"]):
@@ -1034,7 +1302,7 @@ class Trainer:
                     if debug_dir and paths:
                         self._save_debug_image(paths[i], det_boxes * scale, det_classes,
                                                os.path.join(debug_dir, f"{bi}_{i}.png"))
-        if save_detections:
+        if save_detections and self.is_main:
             with open(save_detections, "w") as f:
                 json.dump(detections, f)
             print(f"wrote {len(detections)} detections: {save_detections}", flush=True)

@@ -348,10 +348,16 @@ def test_disk_store_run_equals_device_store(tmp_path):
                 assert a[k] == b[k], k
 
 
-@pytest.mark.parametrize("training,match", [
-    ({"mesh_data": 2}, "mesh"), ({"stage_pixels": "on"}, "stage_pixels")])
-def test_unported_settings_refused(tmp_path, training, match):
-    with pytest.raises(NotImplementedError, match=match):
+@pytest.mark.parametrize("training,error,match", [
+    pytest.param({"mesh_data": 2}, ValueError, "mesh 2x1 needs 2 devices, have 1",
+                 id="training0-mesh"),
+    pytest.param({"stage_pixels": "on"}, NotImplementedError, "stage_pixels",
+                 id="training1-stage_pixels")])
+def test_unported_settings_refused(tmp_path, training, error, match):
+    """stage_pixels: on is not ported; a mesh without a process group of its
+    size is refused with the device count (the JAX package's refusal),
+    before the synthetic set is written."""
+    with pytest.raises(error, match=match):
         Trainer.from_config(_cfg(str(tmp_path), **training), workdir=str(tmp_path),
                             device="cpu")
     assert not os.path.exists(os.path.join(str(tmp_path), "synth"))  # refused first

@@ -160,9 +160,17 @@ def _tiny_trainer(training: dict):
     return Trainer(cfg, model, 3, steps_per_epoch=1, device="cpu", n_images=8)
 
 
-@pytest.mark.parametrize("field,value", [("mesh_data", 2), ("stage_pixels", "on")])
-def test_unported_options_refused(field, value):
-    with pytest.raises(NotImplementedError, match=field):
+@pytest.mark.parametrize("field,value,error,match", [
+    pytest.param("mesh_data", 2, ValueError, "mesh 2x1 needs 2 devices, have 1",
+                 id="mesh_data-2"),
+    pytest.param("stage_pixels", "on", NotImplementedError, "stage_pixels",
+                 id="stage_pixels-on")])
+def test_unported_options_refused(field, value, error, match):
+    """stage_pixels: on is not ported. A mesh is: without a process group
+    of mesh_data x mesh_model ranks it is refused with the device count, as
+    the JAX package refuses a mesh larger than its devices, and never runs
+    on one device."""
+    with pytest.raises(error, match=match):
         _tiny_trainer({field: value})
 
 
