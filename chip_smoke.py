@@ -5,7 +5,8 @@ Phases, each printing its numbers on a line of its own:
   1. device: refuse to run without CUDA; TF32 off; the card's name and power
      limit from nvidia-smi.
   2. build: the kernels from owlvit_tpu_torch/csrc (attention forward and
-     backward, fused add+LayerNorm), one nvcc per source, started together;
+     backward, fused add+LayerNorm, the matcher's assignment and label
+     propagation), one nvcc per source, started together;
      nvcc's registers, stack and spills per kernel, the bf16 attention
      forward's, backward's and split pair's under keys of their own (the
      forward and the pair's dq and dkv kernels must not spill; none may
@@ -80,9 +81,19 @@ Phases, each printing its numbers on a line of its own:
      boxes per image, lr 3e-6, weight decay 0.1: finite terms, launch counts
      (12 pk_fwd and 1 pk_bwd per step), frozen parameters bit-unchanged,
      every trainable one moved; host wall of steps 2-4, CUDA-event times of
-     each phase of the step, peak memory. Then the trained layer on the
-     prefix output of 8 images: kernel path against the plain path, forward
-     and backward.
+     each phase of the step, peak memory; jv_assign and propagate_labels
+     once a step, the matcher's inputs and the assignment kept. Then the trained layer on
+     the prefix output of 8 images: kernel path against the plain path,
+     forward and backward.
+ 10b. kernel_matcher: jv_assign and propagate_labels against the host
+     solver and the host walk, exact: on the 4 train steps' own costs,
+     boxes and classes (read back here only), then jv_assign on tie-heavy
+     integer costs (duplicated columns, masked rows, an image of identical
+     rows) at [32, 16, 2304], [32, 64, 2304], [32, 64, 576], [4, 64, 3600]
+     and propagate_labels on chains of overlapping boxes (the walk's order
+     decides) and pairs at IoU 0.85 to a few ulps at [32, 2304] and [4,
+     3600]; times at the train step's shapes beside the host versions with
+     their device read and the bound by bytes.
  11. train_cached: the same recipe with training.cache_backbone, the device
      pool sized for config.yaml's 2500 images, 64 of them trained on: epoch
      1 (2 steps) fills the pool, epoch 2 (2 steps, no pixels) gathers.
@@ -123,6 +134,17 @@ Phases, each printing its numbers on a line of its own:
      phase 12's checkpoints (a synthetic PNG test set of 16 images), the
      metrics within 1e-8 of the CLI's direct eval and the kept detections
      (--save-detections) equal.
+ 13b. stage: training.stage_pixels: on through Trainer.with_data, B/16
+     bf16, batch 32, max_gt 16, 256 + 32 in-memory images, the split
+     backward (OWLVIT_PACKED_BWD=both): the cached device store for 3
+     epochs (the first fills the store from the staged pixels, then 2
+     device epochs under torch.cuda.set_sync_debug_mode("error")) and one
+     uncached epoch (a device epoch), each against the streamed run of the
+     same config (the cached pair in turns: staged, streamed, streamed,
+     staged): JSONL terms, val_map and trained parameters bit-equal, the
+     image pool released after the fill, launches as the paths imply;
+     epoch walls and img/s of the six runs, and the "match" phase's device
+     ms on one more gathered step.
  14. train_options: the fine-tune options at B/16 bf16, batch 32, random
      weights (seed 0). (a) The hflip recipe through Trainer.with_data on
      phase 12's in-memory images (96 + 32): cache_backbone with the "auto"
@@ -168,8 +190,9 @@ The kernels JSON (second-to-last line) gives each kernel's launches summed
 over the paths driven (serving, the open-vocabulary lanes, bulk_detect
 and the CLI's inference commands, the uncached and cached train runs, the
 three fine-tune runs, the exported programs and the CLI's evals through
-and beside them, the training options' drives, the mesh phase's runs (each
-rank's counts added), and for the transposed
+and beside them, the staged and streamed runs, the training options'
+drives, the mesh phase's runs (each rank's counts added), and for the
+transposed
 entries alone the drives of phase 6; each counted from 0 just
 before it and read just after, each launch once, where the wrapper makes it),
 its error, time, plain time, bound and library time at its main-path shape;
@@ -205,7 +228,7 @@ from owlvit_tpu_torch import cli  # noqa: E402
 from owlvit_tpu_torch.data.dataset import DetectionDataset  # noqa: E402
 from owlvit_tpu_torch.data.tokenizer import HashTokenizer  # noqa: E402
 from owlvit_tpu_torch.models import get_config, owlvit, vit  # noqa: E402
-from owlvit_tpu_torch.ops import _cuda, fused_ln  # noqa: E402
+from owlvit_tpu_torch.ops import _cuda, fused_ln, losses, matcher  # noqa: E402
 from owlvit_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from owlvit_tpu_torch.ops import nms as nms_ops  # noqa: E402
 from owlvit_tpu_torch.ops.quant import dequantize_rows  # noqa: E402
@@ -234,6 +257,10 @@ KERNELS = {
                        "owlvit_tpu/ops/flash_attention.py:73"),
     "transposed_dq": (_BWD_SRC, "owlvit_tpu/ops/flash_attention.py:136"),
     "transposed_dkv": (_BWD_SRC, "owlvit_tpu/ops/flash_attention.py:159"),
+    # not Pallas kernels: the JAX matcher's solver and the label propagation,
+    # lax loops that XLA runs on the device inside the train step
+    "jv_assign": ("owlvit_tpu_torch/csrc/matcher.cu", "owlvit_tpu/ops/matcher.py:32"),
+    "propagate_labels": ("owlvit_tpu_torch/csrc/matcher.cu", "owlvit_tpu/ops/losses.py:55"),
 }
 # each kernel's launch counter: (wrapper, attribute), added to where the
 # wrapper launches; pk_fwd, pk_dq and pk_dkv count a one-head launch (the
@@ -244,7 +271,9 @@ COUNTERS = {"pk_fwd": (fa.pk_fwd, "launches"), "pk_bwd": (fa.pk_bwd, "launches")
             "add_ln_bwd": (fused_ln.add_ln_bwd, "launches"),
             "transposed_fwd": (fa.pk_fwd, "transposed_launches"),
             "transposed_dq": (fa.pk_dq, "transposed_launches"),
-            "transposed_dkv": (fa.pk_dkv, "transposed_launches")}
+            "transposed_dkv": (fa.pk_dkv, "transposed_launches"),
+            "jv_assign": (matcher.jv_assign, "launches"),
+            "propagate_labels": (losses.propagate_labels, "launches")}
 SWITCHES = ("OWLVIT_FUSED_LN", "OWLVIT_PACKED_FLASH", "OWLVIT_PACKED_BWD")
 BATCH = 4
 C = fa.STATIC_MAX_DEFAULT
@@ -356,6 +385,12 @@ def max_abs(a, b):
 
 def max_rel(a, b):
     return max_abs(a, b) / b.float().abs().max().item()
+
+
+def matched(steps):
+    """The matcher's launches in `steps` train steps: one assignment and one
+    label propagation a step (the loss of each micro-step)."""
+    return {"jv_assign": steps, "propagate_labels": steps}
 
 
 def reset_counts():
@@ -517,7 +552,12 @@ def phase_build():
                  for D in (256, 512, 768, 1024)}
     pk_dq_bf16 = {"ptxas": next(iter(dq.values())), "dynamic_smem_bytes": _cuda.query(
         "owlvit_pk_dq_smem_bytes", torch.device("cuda", 0))}
+    # the matcher's two kernels (csrc/matcher.cu), one instantiation each
+    match_kernels = {name: lines for name, lines in report.items()
+                     if "jv_assign_kernel" in name or "propagate_labels_kernel" in name}
+    check(len(match_kernels) == 2, f"ptxas report of the matcher kernels: {match_kernels}")
     emit("build", seconds=build_s, library=lib_path.name, ptxas=report,
+         ptxas_matcher=match_kernels,
          ptxas_pk_fwd_bf16=fwd, ptxas_pk_bwd_bf16=bwd, ptxas_pk_dq_bf16=dq, pk_dq_bf16=pk_dq_bf16,
          ptxas_add_ln_bwd_bf16=ln_bwd,
          add_ln_bwd_bf16_by_width=ln_widths)
@@ -1192,6 +1232,33 @@ def train_batch(rng, B, G, S, n_classes):
             "labels": labels, "boxes": boxes, "gt_mask": mask}
 
 
+@contextlib.contextmanager
+def recorded_matching():
+    """Keep the matcher's inputs and outputs of every train step while the
+    block runs: {"boxes": [the predicted boxes], "assign": [(cost,
+    row_mask, assigned, target_classes, n_classes)]}, the step's own
+    tensors (no copy: nothing writes them after the call, so the step's
+    device work is unchanged). The loss reaches both through the matcher
+    module's attributes, which this wraps."""
+    record = {"boxes": [], "assign": []}
+    cost_matrix, assign = matcher.cost_matrix, matcher.assign
+
+    def cost_recorded(pred_sims, pred_boxes, *args, **kwargs):
+        record["boxes"].append(pred_boxes.detach())
+        return cost_matrix(pred_sims, pred_boxes, *args, **kwargs)
+
+    def assign_recorded(cost, gt_labels, gt_mask, n_classes):
+        assigned, target = assign(cost, gt_labels, gt_mask, n_classes)
+        record["assign"].append((cost.detach(), gt_mask.bool(), assigned, target, n_classes))
+        return assigned, target
+
+    matcher.cost_matrix, matcher.assign = cost_recorded, assign_recorded
+    try:
+        yield record
+    finally:
+        matcher.cost_matrix, matcher.assign = cost_matrix, assign
+
+
 class PhaseTimer:
     """CUDA events (and host clock) at the train step's phase marks; the
     first mark after "input" is "prefix", set by a pre-hook on the first
@@ -1237,20 +1304,22 @@ def phase_train(steps=4, batch=32, max_gt=64, n_classes=80):
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     walls, terms, phases = [], [], []
-    for i, b in enumerate(batches):
-        timer[0] = PhaseTimer() if i else None
-        t0 = time.perf_counter()
-        terms.append(trainer.train_step(b, mark=timer[0]).tolist())
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-        if timer[0]:
-            phases.append(timer[0].durations())
+    with recorded_matching() as matching:
+        for i, b in enumerate(batches):
+            timer[0] = PhaseTimer() if i else None
+            t0 = time.perf_counter()
+            terms.append(trainer.train_step(b, mark=timer[0]).tolist())
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            if timer[0]:
+                phases.append(timer[0].durations())
     launches = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     hook.remove()
 
     check(np.isfinite(terms).all(), f"non-finite loss terms {terms}")
-    check(launches == {**dict.fromkeys(KERNELS, 0), "pk_fwd": L * steps, "pk_bwd": steps},
+    check(launches == {**dict.fromkeys(KERNELS, 0), "pk_fwd": L * steps, "pk_bwd": steps,
+                       **matched(steps)},
           f"{launches} launches in {steps} steps")
     trainable = {id(p) for p in trainer.params}
     for n, p in model.named_parameters():
@@ -1294,7 +1363,167 @@ def phase_train(steps=4, batch=32, max_gt=64, n_classes=80):
          vs_f32_max_rel=vs_f32)
     del model, trainer, before, acts, out
     torch.cuda.empty_cache()
-    return launches
+    return launches, matching
+
+
+# ---------------------------------------------------------------- matcher
+
+# The matcher kernels' check shapes [B, G, P]: bench.py's recipe (G = 16) and
+# the smoke's train phases (G = 64) at B/16's P = 2304, B/32's 576, L/14's 3600
+MATCH_SHAPES = ((32, 16, 2304), (32, 64, 2304), (32, 64, 576), (4, 64, 3600))
+
+
+def tie_costs(rng, B, G, P):
+    """Tie-heavy integer costs in [0, 4) (sums exact in fp32, so only the
+    solver's own order decides among equal paths): every column twice;
+    masked rows: image 0 none, image 1 all, image 2 its first half, the rest
+    at random; image 3 every row the same row with no row masked (every
+    augmenting path runs over equal costs)."""
+    cost = rng.integers(0, 4, (B, G, P)).astype(np.float32)
+    half = P // 2
+    cost[..., half:2 * half] = cost[..., :half]
+    mask = rng.random((B, G)) < 0.5
+    mask[0], mask[1], mask[2, :G // 2] = True, False, False
+    cost[3], mask[3] = cost[3, 0], True
+    return cost, mask
+
+
+def host_ms(fn, calls=3):
+    """Median host wall of fn() in ms (fn ends in a host read)."""
+    walls = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(walls))
+
+
+def propagation_cases(rng, B, P, n_classes):
+    """Boxes [B, P, 4] and classes [B, P] where the walk's order decides:
+    small random boxes (few overlaps) with 8 random foreground patches; a
+    chain of 12 boxes each shifted by 6% of its width from the one before
+    (IoU 0.887 with a neighbour, 0.786 with the next but one) at increasing
+    patch indices, its first link foreground (the label walks down the
+    chain); a reversed chain whose foreground link has the highest index
+    (the label reaches one link); and 7 pairs built to sit at the 0.85
+    boundary: box b inside box a at s times its width, s = 0.85 and its
+    fp32 neighbours up to 3 ulps away, so that IoU = s up to rounding."""
+    c = rng.uniform(0.1, 0.9, (B, P, 2))
+    wh = rng.uniform(0.005, 0.03, (B, P, 2))
+    bx = np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
+    tc = np.full((B, P), n_classes, np.int64)
+    s85 = np.float32(0.85)
+    ulps = [s85]
+    for _ in range(3):
+        ulps = [np.nextafter(ulps[0], np.float32(0)), *ulps, np.nextafter(ulps[-1], np.float32(1))]
+    for b in range(B):
+        idx = rng.permutation(P)
+        for chain, fg in ((np.sort(idx[:12]), 0), (np.sort(idx[12:24])[::-1], 0)):
+            w, h = rng.uniform(0.1, 0.2, 2)
+            x0, y0 = rng.uniform(0.0, 0.4, 2)
+            for k, j in enumerate(chain):
+                bx[b, j] = [x0 + 0.06 * w * k, y0, x0 + 0.06 * w * k + w, y0 + h]
+            tc[b, chain[fg]] = rng.integers(0, n_classes)
+        for (i, j), sv in zip(idx[24:38].reshape(7, 2), ulps):
+            w, h = rng.uniform(0.05, 0.3, 2)
+            x0, y0 = rng.uniform(0.0, 0.6, 2)
+            bx[b, i] = [x0, y0, x0 + w, y0 + h]
+            bx[b, j] = [x0, y0, np.float32(x0) + sv * np.float32(w), y0 + h]
+            tc[b, min(i, j)] = rng.integers(0, n_classes)
+        tc[b, idx[38:46]] = rng.integers(0, n_classes, 8)
+    return bx, tc
+
+
+def phase_kernel_matcher(matching):
+    """jv_assign and propagate_labels against their plain versions (the
+    host solver and the host walk), exact equality: on the matrices and
+    boxes of phase train's own steps (`matching`, read back here only),
+    then jv_assign on tie_costs at MATCH_SHAPES and propagate_labels on
+    propagation_cases at [32, 2304] and [4, 3600]. Times at the train
+    step's shapes ([32, 64, 2304] and [32, 2304]): CUDA events through the
+    wrapper, the profiler's device time, the plain version with its device
+    read, the bound by bytes. The steps' assignments are their own; their
+    propagation is launched again on their inputs. Each kernel's
+    max_abs_err is the largest |kernel - host| of its outputs (columns,
+    classes) over every comparison here. Returns the two kernels' rows."""
+    rng = np.random.default_rng(14)
+    err = {"jv_assign": 0, "propagate_labels": 0}
+
+    def compare(name, got, want):
+        """-> the mismatches of two integer arrays; err[name] takes their
+        largest absolute difference."""
+        d = np.abs(np.asarray(got, np.int64) - np.asarray(want, np.int64))
+        err[name] = max(err[name], int(d.max()) if d.size else 0)
+        return int((d != 0).sum())
+
+    n_classes = 80
+    train_steps = []
+    thr = 0.85  # the trainer's (push_pull_loss's) IoU propagation threshold
+    for (cost, mask, got, classes, nc), boxes in zip(matching["assign"], matching["boxes"]):
+        want = matcher.hungarian(cost.cpu().numpy(), mask.cpu().numpy())
+        got_p = losses.propagate_labels(boxes, classes, nc, thr).cpu().numpy()
+        want_p = losses.propagate_labels(boxes.cpu(), classes.cpu(), nc, thr).numpy()
+        step = {"shape": list(cost.shape), "valid_rows": int(mask.sum().item()),
+                "assign_mismatches": compare("jv_assign", got.cpu().numpy(), want),
+                "propagate_mismatches": compare("propagate_labels", got_p, want_p),
+                "relabelled": int((want_p != classes.cpu().numpy()).sum())}
+        check(step["assign_mismatches"] == 0 and step["propagate_mismatches"] == 0,
+              f"the train step's matcher kernels against the host: {step}")
+        train_steps.append(step)
+    check(len(train_steps) == 4, f"{len(train_steps)} recorded train steps")
+    ties = []
+    for shape in MATCH_SHAPES:
+        cost, mask = tie_costs(rng, *shape)
+        c, m = torch.from_numpy(cost).cuda(), torch.from_numpy(mask).cuda()
+        got = matcher.jv_assign(c, m).cpu().numpy()
+        want = matcher.hungarian(cost, mask)
+        case = {"shape": list(shape), "valid_rows": int(mask.sum()),
+                "mismatches": compare("jv_assign", got, want),
+                "ms": cuda_ms(lambda: matcher.jv_assign(c, m), 3)}
+        check(case["mismatches"] == 0 and (want[~mask] == -1).all(),
+              f"jv_assign on tie-heavy costs: {case}")
+        ties.append(case)
+    chains = []
+    for B, P in ((32, 2304), (4, 3600)):
+        bx, tc = propagation_cases(rng, B, P, n_classes)
+        want = losses.propagate_labels(torch.from_numpy(bx), torch.from_numpy(tc),
+                                       n_classes, 0.85).numpy()
+        got = losses.propagate_labels(torch.from_numpy(bx).cuda(), torch.from_numpy(tc).cuda(),
+                                      n_classes, 0.85).cpu().numpy()
+        case = {"shape": [B, P], "mismatches": compare("propagate_labels", got, want),
+                "relabelled": int((want != tc).sum())}
+        check(case["mismatches"] == 0 and case["relabelled"] >= 12 * B,
+              f"propagate_labels on chains and boundary pairs: {case}")
+        chains.append(case)
+
+    # times at the train step's shapes, on its own inputs
+    cost, mask, _, classes, nc = matching["assign"][-1]
+    boxes = matching["boxes"][-1]
+    B, G, P = cost.shape
+    timed = {"jv_assign": compare("jv_assign", matcher.jv_assign(cost, mask).cpu().numpy(),
+                                  matcher.hungarian(cost.cpu().numpy(), mask.cpu().numpy())),
+             "propagate_labels": compare(
+                 "propagate_labels", losses.propagate_labels(boxes, classes, nc, thr).cpu().numpy(),
+                 losses.propagate_labels(boxes.cpu(), classes.cpu(), nc, thr).numpy())}
+    check(timed == {"jv_assign": 0, "propagate_labels": 0},
+          f"the matcher kernels on the timed inputs, mismatches: {timed}")
+    jv = {"shape": [B, G, P], "max_abs_err": float(err["jv_assign"]),
+          "ms": cuda_ms(lambda: matcher.jv_assign(cost, mask), 20),
+          "device_ms": device_ms(lambda: matcher.jv_assign(cost, mask)),
+          "plain_ms": host_ms(lambda: matcher.hungarian(cost.cpu().numpy(),
+                                                        mask.cpu().numpy())),
+          "library_ms": None, "sequential": True}
+    jv["bound_ms"], jv["bound_by"] = bound(0, B * G * P * 4 + B * G + B * G * 4)
+    prop = {"shape": [B, P], "max_abs_err": float(err["propagate_labels"]),
+            "ms": cuda_ms(lambda: losses.propagate_labels(boxes, classes, nc, thr), 20),
+            "device_ms": device_ms(lambda: losses.propagate_labels(boxes, classes, nc, thr)),
+            "plain_ms": host_ms(lambda: losses.propagate_labels(boxes.cpu(), classes.cpu(),
+                                                                nc, thr)),
+            "library_ms": None, "sequential": True}
+    prop["bound_ms"], prop["bound_by"] = bound(0, B * P * 16 + 2 * B * P * 8)
+    emit("kernel_matcher", train_steps=train_steps, ties=ties, propagation=chains,
+         jv_assign=jv, propagate_labels=prop, nvidia_smi=nvidia_smi())
+    return {"jv_assign": jv, "propagate_labels": prop}
 
 
 LN_EPS = 1e-5
@@ -1640,7 +1869,7 @@ def hybrid_step(trainer, batch):
     grad_h = [p.grad for p in params]
     upd_h = [p.detach() - s for p, s in zip(params, start)]
     check(launches == {**dict.fromkeys(KERNELS, 0), "pk_fwd": 1, "transposed_dq": 1,
-                       "transposed_dkv": 1},
+                       "transposed_dkv": 1, **matched(1)},
           f"hybrid step: {launches} launches")
     every = range(len(params))
     key_bias = [i for i in every if names[id(params[i])].endswith("attn.k.bias")]
@@ -1679,7 +1908,8 @@ def phase_train_cached(n_rows=64, batch=32, max_gt=64, n_classes=80):
     with switches(OWLVIT_FUSED_LN=None, OWLVIT_PACKED_FLASH=None):
         trainer, rec = cached_run(data, orders, batch, max_gt, n_classes)
     check(rec["launches"] == {**dict.fromkeys(KERNELS, 0),
-                              "pk_fwd": (L - 1) * fills + steps, "pk_bwd": steps},
+                              "pk_fwd": (L - 1) * fills + steps, "pk_bwd": steps,
+                              **matched(steps)},
           f"cached default: {rec['launches']} launches")
     sel = orders[0][:batch]
     with torch.no_grad():
@@ -1707,7 +1937,7 @@ def phase_train_cached(n_rows=64, batch=32, max_gt=64, n_classes=80):
                                   "pk_fwd": (L - 1) * fills + steps, "pk_dq": steps,
                                   "pk_dkv": steps,
                                   "add_ln_fwd": 2 * (L - 1) * fills + 2 * steps,
-                                  "add_ln_bwd": 2 * steps},
+                                  "add_ln_bwd": 2 * steps, **matched(steps)},
               f"cached fused: {rec['launches']} launches")
         with torch.no_grad():
             fresh = fresh_prefix(trainer, data, sel).float()
@@ -1850,7 +2080,7 @@ def phase_run(workdir, n_train=96, n_test=32, batch=32, max_gt=16):
     timed_eval(trainer, record)
     metrics, launches, run1_s = drive_run(trainer)
     check(launches == {**dict.fromkeys(KERNELS, 0), "pk_fwd": L * (steps + 2 * evals) + steps,
-                       "pk_bwd": 2 * steps},
+                       "pk_bwd": 2 * steps, **matched(2 * steps)},
           f"run 1: {launches} launches ({steps} filled and {steps} gathered steps, "
           f"{2 * evals} eval batches)")
     total = {k: total[k] + launches[k] for k in KERNELS}
@@ -1893,7 +2123,7 @@ def phase_run(workdir, n_train=96, n_test=32, batch=32, max_gt=16):
     _, launches, run2_s = drive_run(trainer)
     check(trainer.step == 3 * steps, f"run 2 ended at step {trainer.step}")
     check(launches == {**dict.fromkeys(KERNELS, 0), "pk_fwd": L * (steps + evals),
-                       "pk_bwd": steps}, f"run 2: {launches} launches")
+                       "pk_bwd": steps, **matched(steps)}, f"run 2: {launches} launches")
     total = {k: total[k] + launches[k] for k in KERNELS}
     rows = jsonl_rows(workdir)
     check_rows(rows, 3, n_classes)
@@ -1918,6 +2148,130 @@ def phase_run(workdir, n_train=96, n_test=32, batch=32, max_gt=16):
     emit("run", model="b16", dtype="bfloat16", batch=batch, images=[n_train, n_test],
          run1=run1, run2=run2, run3={"s": run3_s, "launches": launches},
          max_memory_allocated_gb=peak_gb, host=host_facts())
+    return total
+
+
+# ------------------------------------------------------------------- stage
+
+STAGE_TRAIN, STAGE_TEST, STAGE_EPOCHS = 256, 32, 3
+
+
+def stage_config(n_epochs, batch, max_gt, stage, cached):
+    """The stage phase's run: eval after every epoch, no checkpoints."""
+    return Config(DataConfig(max_gt=max_gt),
+                  TrainingConfig(n_epochs=n_epochs, learning_rate=3e-6, weight_decay=0.1,
+                                 batch_size=batch, eval_every_epochs=1,
+                                 checkpoint_dir=None, log_file="metrics.jsonl",
+                                 cache_backbone=cached, cache_backbone_store="device",
+                                 stage_pixels=stage, seed=0),
+                  ModelConfig(name="b16", dtype="bfloat16", trainable_last_k=1))
+
+
+def stage_run(train_ds, test_ds, stage, n_epochs, batch, max_gt, cached):
+    """One run through Trainer.with_data in a temporary directory, the
+    steps of its device epochs (if any) under sync debug mode "error": any
+    host read or synchronising copy in them raises (the epoch's one copy
+    in and one read out lie outside). -> (trainer, metrics, launches,
+    seconds, JSONL rows, the epochs run as the device epoch)."""
+    with tempfile.TemporaryDirectory() as workdir:
+        trainer = Trainer.with_data(stage_config(n_epochs, batch, max_gt, stage, cached),
+                                    train_ds, test_ds, RUN_LABELMAP, workdir, device="cuda")
+        device_epochs = []
+        run_epoch, device_steps = trainer._run_epoch_device, trainer._device_steps
+
+        def spy(epoch):
+            device_epochs.append(epoch)
+            return run_epoch(epoch)
+
+        def steps_sync_error(*args):
+            old = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return device_steps(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode(old)
+
+        trainer._run_epoch_device, trainer._device_steps = spy, steps_sync_error
+        metrics, launches, secs = drive_run(trainer)
+        rows = jsonl_rows(workdir)
+    return trainer, metrics, launches, secs, rows, device_epochs
+
+
+def phase_stage(n_train=STAGE_TRAIN, n_test=STAGE_TEST, batch=32, max_gt=16,
+                n_epochs=STAGE_EPOCHS):
+    """training.stage_pixels: on, B/16 bf16, batch 32, the backward's split
+    pair (OWLVIT_PACKED_BWD=both: the same bits from launch to launch): the
+    cached device store over n_train in-memory images for n_epochs (epoch 1
+    fills the store from the staged pixels, epochs 2-3 are device epochs
+    under sync debug mode "error"), in turns with the streamed run of the
+    same config (staged, streamed, streamed, staged: the first run of the
+    phase pays the first launches at its shapes), then one uncached epoch
+    (a device epoch) and its streamed run: the JSONL terms, val_map and the
+    trained parameters of each staged run bit-equal to the streamed run's,
+    launches as the paths imply. Epoch walls and img/s of all six runs, and
+    the "match" phase's device ms on one more gathered step of the second
+    staged trainer. Returns the launches of the six runs."""
+    mcfg = get_config("b16")
+    S, L = mcfg.vision.image_size, mcfg.vision.num_layers
+    train_ds = SmokeSet(n_train, S, max_gt, seed=2)
+    test_ds = SmokeSet(n_test, S, max_gt, seed=3)
+    steps, evals = n_train // batch, -(-n_test // batch)
+    total = dict.fromkeys(KERNELS, 0)
+    out, params = {}, {}
+    with switches(OWLVIT_PACKED_BWD="both"):
+        for name, stage, epochs, cached in (("staged", "on", n_epochs, True),
+                                            ("streamed", "off", n_epochs, True),
+                                            ("streamed_2", "off", n_epochs, True),
+                                            ("staged_2", "on", n_epochs, True),
+                                            ("staged_uncached", "on", 1, False),
+                                            ("streamed_uncached", "off", 1, False)):
+            trainer, metrics, launches, secs, rows, dev_epochs = stage_run(
+                train_ds, test_ds, stage, epochs, batch, max_gt, cached)
+            pk_fwd = (L * steps + (epochs - 1) * steps if cached else L * epochs * steps)
+            want = {**dict.fromkeys(KERNELS, 0), "pk_fwd": pk_fwd + L * evals * epochs,
+                    "pk_dq": epochs * steps, "pk_dkv": epochs * steps,
+                    **matched(epochs * steps)}
+            check(launches == want, f"stage {name}: {launches} launches, expected {want}")
+            want_epochs = ([] if stage == "off" else list(range(1, epochs)) if cached
+                           else list(range(epochs)))
+            check(dev_epochs == want_epochs, f"stage {name}: device epochs {dev_epochs}")
+            check_rows(rows, epochs, len(RUN_LABELMAP))
+            out[name] = {"s": secs, "launches": launches, "device_epochs": dev_epochs,
+                         "val_map": metrics["map"],
+                         "epochs": [{k: r[k] for k in ("epoch", "step", "epoch_train_secs",
+                                                       "epoch_imgs_per_sec")} for r in rows],
+                         "rows": rows}
+            params[name] = [p.detach().to("cpu", copy=True) for p in trainer.params]
+            if name == "staged_2":
+                check(set(trainer.pix_train) == {"labels", "boxes", "gt_mask"},
+                      f"the staged pools after the fill: {sorted(trainer.pix_train)}")
+                # the phases of one more gathered step, off the counted run
+                idxs = np.arange(batch)
+                batch_ = trainer._staged_batch(torch.from_numpy(idxs).cuda(), False)
+                batch_["indices"] = idxs
+                timer = PhaseTimer()
+                trainer.train_step(batch_, mark=timer)
+                out[name]["step_phases_ms"] = timer.durations()
+            total = {k: total[k] + launches[k] for k in KERNELS}
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+    for staged, streamed in (("staged", "streamed"), ("staged_2", "streamed"),
+                             ("streamed_2", "streamed"),
+                             ("staged_uncached", "streamed_uncached")):
+        a, b = out[staged]["rows"], out[streamed]["rows"]
+        same = all(x[k] == y[k] for x, y in zip(a, b) for k in x
+                   if k.startswith(("train_", "val_")))
+        check(same and out[staged]["val_map"] == out[streamed]["val_map"],
+              f"{staged} vs {streamed}: JSONL rows {a} vs {b}")
+        check(all(torch.equal(x, y) for x, y in zip(params[staged], params[streamed])),
+              f"{staged} vs {streamed}: the trained parameters differ")
+    for rec in out.values():
+        rec.pop("rows")
+    emit("stage", model="b16", dtype="bfloat16", batch=batch, images=[n_train, n_test],
+         max_gt=max_gt, bwd_mode="both", terms_bit_equal=True, params_bit_equal=True,
+         match_device_ms=out["staged_2"]["step_phases_ms"]["match"]["device_ms"],
+         runs=out, nvidia_smi=nvidia_smi())
     return total
 
 
@@ -2166,7 +2520,7 @@ class StepRecorder:
     def check(self, what, n_params, L):
         for s in self.steps:
             want = {**dict.fromkeys(KERNELS, 0), "pk_fwd": 2 * (L - 1) + 1 if s["fill"] else 1,
-                    "pk_bwd": 1}
+                    "pk_bwd": 1, **matched(1)}
             check(s["launches"] == want, f"{what} step {s['step']}: {s['launches']} launches, "
                   f"fill={s['fill']}")
             check(s["moved"] == (n_params if s["step"] % 2 == 0 else 0),
@@ -2218,7 +2572,8 @@ def hflip_recipe_run(train_ds, test_ds, batch, max_gt, L):
               f"run 1 fills {[s['fill'] for s in rec.steps]}")
         check(launches == {**dict.fromkeys(KERNELS, 0),
                            "pk_fwd": (2 * (L - 1) + 1) * steps + steps + 2 * L * evals,
-                           "pk_bwd": 2 * steps}, f"recipe run 1: {launches} launches")
+                           "pk_bwd": 2 * steps, **matched(2 * steps)},
+              f"recipe run 1: {launches} launches")
         # the stored rows of the first filled batch against a fresh prefix of
         # its pixels as they are (rows 2i) and mirrored (rows 2i + 1)
         idxs, image = rec.first_fill
@@ -2290,7 +2645,8 @@ def hflip_recipe_run(train_ds, test_ds, batch, max_gt, L):
         check(trainer.step == 2 * steps and [s["fill"] for s in rec2.steps] == [True] * steps,
               f"run 2 ended at step {trainer.step}, fills {[s['fill'] for s in rec2.steps]}")
         check(launches2 == {**dict.fromkeys(KERNELS, 0),
-                            "pk_fwd": (2 * (L - 1) + 1) * steps + L * evals, "pk_bwd": steps},
+                            "pk_fwd": (2 * (L - 1) + 1) * steps + L * evals, "pk_bwd": steps,
+                            **matched(steps)},
               f"recipe run 2: {launches2} launches")
         rows2 = jsonl_rows(run2)
         check_rows(rows2, 1, n_classes)
@@ -2358,9 +2714,9 @@ def hflip_cached_vs_uncached(batch, max_gt, n_classes, L, S):
     terms_u, launches_u, _, _, _ = counted_step(plain, data)
     hook.remove()
     terms_c, launches_c, _, _, _ = counted_step(cached, data)
-    check(launches_u == {**dict.fromkeys(KERNELS, 0), "pk_fwd": L, "pk_bwd": 1}
+    check(launches_u == {**dict.fromkeys(KERNELS, 0), "pk_fwd": L, "pk_bwd": 1, **matched(1)}
           and launches_c == {**dict.fromkeys(KERNELS, 0), "pk_fwd": 2 * (L - 1) + 1,
-                             "pk_bwd": 1},
+                             "pk_bwd": 1, **matched(1)},
           f"hflip steps: uncached {launches_u}, cached {launches_c}")
     rows = torch.from_numpy(2 * data["indices"] + flips).cuda()
     with torch.no_grad():
@@ -2419,9 +2775,10 @@ def remat_steps(batch, max_gt, n_classes, L, S):
                "launches_off": l_off, "launches_on": l_on, "wall_ms_off": w_off,
                "wall_ms_on": w_on, "peak_gb_off": peak_off, "peak_gb_on": peak_on,
                "step_peak_gb_off": act_off, "step_peak_gb_on": act_on}
-        check(l_off == {**dict.fromkeys(KERNELS, 0), "pk_fwd": L, "pk_dq": L, "pk_dkv": L}
+        check(l_off == {**dict.fromkeys(KERNELS, 0), "pk_fwd": L, "pk_dq": L, "pk_dkv": L,
+                        **matched(1)}
               and l_on == {**dict.fromkeys(KERNELS, 0), "pk_fwd": 2 * L, "pk_dq": L,
-                           "pk_dkv": L},
+                           "pk_dkv": L, **matched(1)},
               f"remat launches: off {l_off}, on {l_on}")
         check(rec["terms_equal"] and rec["repeat_terms_equal"]
               and rec["repeat_grad_bit_equal"] and rec["grad_l2_rel"] <= TOL_REMAT
@@ -2436,7 +2793,7 @@ def remat_steps(batch, max_gt, n_classes, L, S):
         t_f, l_f, w_f, peak_f, _ = counted_step(on, batches[0])
     check(np.isfinite(t_f).all()
           and l_f == {**dict.fromkeys(KERNELS, 0), "pk_fwd": 2 * L, "pk_dq": L, "pk_dkv": L,
-                      "add_ln_fwd": 2 * 2 * L, "add_ln_bwd": 2 * L},
+                      "add_ln_fwd": 2 * 2 * L, "add_ln_bwd": 2 * L, **matched(1)},
           f"remat under OWLVIT_FUSED_LN=1: {l_f} launches, terms {t_f.tolist()}")
     fused = {"terms": t_f.tolist(), "launches": l_f, "wall_ms": w_f, "peak_gb": peak_f}
     total = {k: total[k] + l_f[k] for k in KERNELS}
@@ -2459,7 +2816,7 @@ def augment_steps(batch, max_gt, n_classes, L, S):
         terms, launches, wall, _, _ = counted_step(trainer, b)
         first.append((terms, wall))
         total = {k: total[k] + launches[k] for k in KERNELS}
-        check(launches == {**dict.fromkeys(KERNELS, 0), "pk_fwd": L, "pk_bwd": 1},
+        check(launches == {**dict.fromkeys(KERNELS, 0), "pk_fwd": L, "pk_bwd": 1, **matched(1)},
               f"augment step: {launches} launches")
     again = []
     for state, b in zip(states, batches):
@@ -2765,7 +3122,8 @@ def phase_mesh():
                   and (tol_grad is None or diff["grad_step1_l2_rel"] <= tol_grad)
                   and (tol_update is None or diff["update_l2_rel"] <= tol_update)
                   and got["launches"]["pk_fwd"] == fills * L + (steps - fills)
-                  and got["launches"]["pk_dq"] == got["launches"]["pk_dkv"] == steps)
+                  and got["launches"]["pk_dq"] == got["launches"]["pk_dkv"] == steps
+                  and all(got["launches"][k] == n for k, n in matched(steps).items()))
             if not ok:
                 failed.append(f"{name} rank {rank}")
             launches = {k: launches[k] + got["launches"][k] for k in KERNELS}
@@ -2775,7 +3133,8 @@ def phase_mesh():
                                            "grad_step1_worst_tensors")}
             per_rank.append({"rank": rank, **diff, "terms": got["terms"],
                              "launches": {k: got["launches"][k]
-                                          for k in ("pk_fwd", "pk_bwd", "pk_dq", "pk_dkv")},
+                                          for k in ("pk_fwd", "pk_bwd", "pk_dq", "pk_dkv",
+                                                    *matched(0))},
                              "step_wall_ms_two_ranks_share_one_card": got["step_wall_ms"],
                              "pool_rows": got["pool_rows"]})
         if not all(torch.equal(a, b) for a, b in zip(ranks[0][name]["params"],
@@ -2820,16 +3179,19 @@ def main():
          library_bwd_transposed_ms=transposed["bwd"]["library_ms"],
          sdpa_fwd_bwd_ms=bwd["library_fwd_bwd_ms"],
          sdpa_fwd_bwd_transposed_ms=transposed["bwd"]["library_fwd_bwd_ms"])
-    train_launches = phase_train()
+    train_launches, matching = phase_train()
+    match_rows = phase_kernel_matcher(matching)
+    del matching
     cached_launches = phase_train_cached()
     with tempfile.TemporaryDirectory() as run_dir:
         run_launches = phase_run(run_dir)
         export_launches = phase_export(run_dir)
+    stage_launches = phase_stage()
     options_launches = phase_train_options()
     mesh_launches = phase_mesh()
     launches = {k: sum(run[k] for run in (serve_launches, open_vocab_launches, train_launches,
                                           cached_launches, run_launches, export_launches,
-                                          options_launches, mesh_launches))
+                                          stage_launches, options_launches, mesh_launches))
                 for k in KERNELS}
     # the drives of the transposed Function
     for k in ("transposed_fwd", "transposed_dq", "transposed_dkv"):
@@ -2849,6 +3211,8 @@ def main():
         "transposed_fwd": {k: transposed["fwd"][k] for k in ("max_abs_err", *keys)},
         "transposed_dq": {k: transposed["dq"][k] for k in ("max_abs_err", *keys)},
         "transposed_dkv": {k: transposed["dkv"][k] for k in ("max_abs_err", *keys)},
+        **{name: {k: match_rows[name][k] for k in ("max_abs_err", *keys)}
+           for name in ("jv_assign", "propagate_labels")},
     }
     # the backward rows' library call by name
     for name, src in (("pk_bwd", bwd), ("pk_dq", bwd["dq"]), ("pk_dkv", bwd["dkv"]),

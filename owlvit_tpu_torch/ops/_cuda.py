@@ -55,6 +55,10 @@ _SIGNATURES = {
     "owlvit_add_ln_bwd_resident_blocks": [_I, _I, _I],
     # D dtype -> the backward kernel's dynamic shared memory in bytes (no launch)
     "owlvit_add_ln_bwd_smem_bytes": [_I, _I],
+    # cost row_mask col4row | B R C | stream
+    "owlvit_jv_assign": [_P] * 3 + [_I] * 3 + [_P],
+    # boxes classes_in classes_out | B P background | threshold stream
+    "owlvit_propagate_labels": [_P] * 3 + [_I] * 3 + [_F, _P],
 }
 
 

@@ -1,8 +1,9 @@
 """PushPull detection loss (counterpart of owlvit_tpu/ops/losses.py: `_bce`,
 `_focal_mod`, `_propagate_labels`, `push_pull_loss`, `total_loss`).
 
-Batched: every image is matched (ops/matcher.py, solved on the host) and the
-four terms reduce over the batch:
+Batched: every image is matched on the predictions' device (ops/matcher.py;
+on the card the assignment kernel) and the four terms reduce over the
+batch:
 
   loss_ce   BCE(|sims|, one-hot) on foreground patches, per-class weights,
             focal modulation (1 - e^-l)^2 * l, summed over classes, mean
@@ -14,8 +15,11 @@ four terms reduce over the batch:
 The reference's quirks are kept: BCE on |cosine sims| (#2), the sequential
 IoU > 0.85 label propagation after matching (#7), background id = n_classes
 (#13), and the JAX package's clamp of |sims| to [0, 1] before the logs. The
-propagation runs on the host on the boxes the matcher already read; the four
-terms are torch on the predictions' device and carry the gradient.
+propagation runs on the predictions' device as well: `propagate_labels`
+launches the kernel of csrc/matcher.cu on a CUDA tensor and runs the host
+walk `_propagate_labels`, its plain version, on a CPU one. The step reads
+nothing back to the host; the four terms are torch on the predictions'
+device and carry the gradient.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from owlvit_tpu_torch.parallel.sharding import all_reduce_sum_
 
 from . import boxes as box_ops
 from . import matcher
+from ._cuda import launch
 
 _LOG_CLAMP = -100.0  # torch BCELoss clamps log terms at -100
 
@@ -88,6 +93,39 @@ def _propagate_labels(pred_boxes: np.ndarray, target_classes: np.ndarray,
     return tc
 
 
+def propagate_labels(pred_boxes: torch.Tensor, target_classes: torch.Tensor,
+                     n_classes: int, iou_threshold: float) -> torch.Tensor:
+    """The sequential IoU > threshold label propagation of every image:
+    pred_boxes [B, P, 4] xyxy, target_classes [B, P] -> [B, P] int64 on
+    their device. CPU tensors run `_propagate_labels` per image; CUDA
+    tensors the kernel (counted in `propagate_labels.launches`), the same
+    classes bit for bit, on the current stream with no host read."""
+    B, P = target_classes.shape
+    if pred_boxes.shape != (B, P, 4):
+        raise ValueError(f"propagate_labels takes boxes [B, P, 4] and classes [B, P], "
+                         f"got {tuple(pred_boxes.shape)} and {tuple(target_classes.shape)}")
+    if pred_boxes.device.type == "cpu":
+        boxes = pred_boxes.detach().float().numpy()
+        tc = target_classes.numpy()
+        return torch.from_numpy(np.stack([
+            _propagate_labels(boxes[b], tc[b], n_classes, iou_threshold)
+            for b in range(B)]).reshape(B, P).astype(np.int64))
+    if pred_boxes.device.type != "cuda" or target_classes.device != pred_boxes.device:
+        raise ValueError(f"propagate_labels runs on cpu or cuda tensors on one device, "
+                         f"got {pred_boxes.device} and {target_classes.device}")
+    out = torch.empty((B, P), dtype=torch.long, device=pred_boxes.device)
+    if B and P:
+        bx = pred_boxes.detach().float().contiguous()
+        tc = target_classes.long().contiguous()
+        launch("owlvit_propagate_labels", pred_boxes.device, bx.data_ptr(), tc.data_ptr(),
+               out.data_ptr(), B, P, n_classes, float(iou_threshold))
+        propagate_labels.launches += 1
+    return out
+
+
+propagate_labels.launches = 0
+
+
 def push_pull_loss(pred_sims: torch.Tensor, pred_boxes: torch.Tensor,
                    gt_labels: torch.Tensor, gt_boxes: torch.Tensor,
                    gt_mask: torch.Tensor, n_classes: int,
@@ -99,10 +137,12 @@ def push_pull_loss(pred_sims: torch.Tensor, pred_boxes: torch.Tensor,
 
     pred_sims [B, P, C] raw query-bank similarities; pred_boxes [B, P, 4]
     xyxy in [0, 1]; gt_labels [B, G] int; gt_boxes [B, G, 4] xyxy; gt_mask
-    [B, G] bool; class_weights [C] or None. All on one device. Returns
-    dict(loss_ce, loss_bg, loss_bbox, loss_giou) of fp32 scalars. mark, if
-    given, is called as the cost matrix ("cost"), the host's matching and
-    propagation ("host") and the loss terms ("loss") are issued.
+    [B, G] bool; class_weights [C] or None. All on one device, which runs
+    every part, the matching and the propagation included: nothing is read
+    back to the host. Returns dict(loss_ce, loss_bg, loss_bbox, loss_giou)
+    of fp32 scalars. mark, if given, is called as the cost matrix
+    ("cost"), the assignment and the propagation ("match") and the loss
+    terms ("loss") are issued.
 
     data_group: on a mesh, the "data" process group when this rank holds
     B / dp images of a global batch. The normalisers (num_boxes, n_fg,
@@ -118,17 +158,13 @@ def push_pull_loss(pred_sims: torch.Tensor, pred_boxes: torch.Tensor,
     cost = matcher.cost_matrix(sims, boxes, gt_labels, gt_boxes, gt_mask)
     if mark:
         mark("cost")
-    assigned, target, boxes_host = matcher.solve(cost, boxes, gt_labels,
-                                                 gt_mask, n_classes)
-    target = np.stack([_propagate_labels(boxes_host[b], target[b], n_classes,
-                                         iou_propagation_threshold)
-                       for b in range(B)])
+    assigned, target = matcher.assign(cost, gt_labels, gt_mask, n_classes)
+    tc = propagate_labels(boxes, target, n_classes, iou_propagation_threshold)
     # an invalid GT row gathers patch P - 1, as JAX's take_along_axis reads
     # index -1; the mask drops it
-    idx = torch.from_numpy(np.where(assigned < 0, P - 1, assigned)).long().to(dev)
-    tc = torch.from_numpy(target).long().to(dev)
+    idx = torch.where(assigned < 0, P - 1, assigned)
     if mark:
-        mark("host")
+        mark("match")
 
     mask = gt_mask.bool()
     gt_boxes = gt_boxes.float()

@@ -1,19 +1,20 @@
 """Hungarian matching (counterpart of owlvit_tpu/ops/matcher.py: `hungarian`,
 `cost_matrix`, `match`).
 
-The DETR matching cost is computed on the device in torch, batched to
-[B, G, P]. The assignment is solved on the host: `hungarian` is a numpy port
-of the JAX package's Jonker-Volgenant solver itself (not scipy's
-linear_sum_assignment, which breaks ties differently), so the assignment
-equals the JAX one, ties included. Like the vmapped JAX solver, it runs the
-images of a batch in lockstep: Python loops once per Dijkstra step, not once
-per image.
+The DETR matching cost is computed on the predictions' device, batched to
+[B, G, P], and the assignment is solved there too, as the JAX package
+solves it inside its train step with no host round trip: on a CUDA tensor
+`jv_assign` launches the Jonker-Volgenant kernel of csrc/matcher.cu (one
+block per image), and `assign` scatters the matched labels into each
+patch's class on the card. Nothing is read back to the host.
 
-`solve` reads the cost tensor (and the predicted boxes, for the label
-propagation that follows it) from the device in one copy. That read is the
-train step's one synchronisation before the backward; the reference solves on
-the host too. `hungarian_pruned` (off by default in the JAX package) is not
-ported.
+`hungarian` is the plain version: a numpy port of the JAX solver itself
+(not scipy's linear_sum_assignment, which breaks ties differently), so the
+assignment equals the JAX one, ties included. Like the vmapped JAX solver,
+it runs the images of a batch in lockstep (Python loops once per Dijkstra
+step, not once per image). CPU tensors take it; on the card only the tests
+and chip_smoke.py call it, to hold the kernel to it. `hungarian_pruned`
+(off by default in the JAX package) is not ported.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from . import boxes as box_ops
+from ._cuda import launch
 
 
 def hungarian(cost: np.ndarray, row_mask: Optional[np.ndarray] = None) -> np.ndarray:
@@ -125,34 +127,53 @@ def cost_matrix(pred_sims, pred_boxes, gt_labels, gt_boxes, gt_mask, *,
     return torch.where(gt_mask[:, :, None].bool(), cost, torch.zeros_like(cost))
 
 
-def fetch(*tensors: torch.Tensor) -> list:
-    """Copy tensors to the host as float32 numpy arrays in ONE device read:
-    they are flattened and joined on the device first."""
-    flat = torch.cat([t.detach().float().reshape(t.shape[0], -1) for t in tensors], 1)
-    host = flat.cpu().numpy()
-    out, at = [], 0
-    for t in tensors:
-        n = int(np.prod(t.shape[1:]))
-        out.append(host[:, at:at + n].reshape(t.shape))
-        at += n
+def jv_assign(cost: torch.Tensor, row_mask: torch.Tensor) -> torch.Tensor:
+    """Min-cost assignment of cost [B, R, C] (R <= C) with rows that
+    row_mask [B, R] marks False skipped -> col4row [B, R] int32 on cost's
+    device, -1 for skipped rows: `hungarian`'s assignment, ties included.
+    CPU tensors run `hungarian`; CUDA tensors the kernel (counted in
+    `jv_assign.launches`), on the current stream, with no host read."""
+    if cost.dim() != 3 or row_mask.shape != cost.shape[:2]:
+        raise ValueError(f"jv_assign takes cost [B, R, C] and row_mask [B, R], got "
+                         f"{tuple(cost.shape)} and {tuple(row_mask.shape)}")
+    B, R, C = cost.shape
+    if R > C:
+        raise ValueError(f"jv_assign requires rows <= cols, got {tuple(cost.shape[-2:])}")
+    if cost.device.type == "cpu":
+        out = hungarian(cost.detach().float().numpy(), row_mask.bool().numpy())
+        return torch.from_numpy(out)
+    if cost.device.type != "cuda" or row_mask.device != cost.device:
+        raise ValueError(f"jv_assign runs on cpu or cuda tensors on one device, got "
+                         f"{cost.device} and {row_mask.device}")
+    out = torch.empty((B, R), dtype=torch.int32, device=cost.device)
+    if B and R:
+        c = cost.detach().float().contiguous()
+        m = row_mask.bool().contiguous()
+        launch("owlvit_jv_assign", cost.device, c.data_ptr(), m.data_ptr(),
+               out.data_ptr(), B, R, C)
+        jv_assign.launches += 1
     return out
 
 
-def solve(cost: torch.Tensor, pred_boxes: torch.Tensor, gt_labels: torch.Tensor,
-          gt_mask: torch.Tensor, n_classes: int):
-    """The assignment on the host from a `cost_matrix` output: one device
-    read brings the cost, the predicted boxes, the labels and the mask
-    over. Returns numpy (assigned [B, G] int32, -1 for invalid GT;
-    target_classes [B, P] int32 with background = n_classes; the predicted
-    boxes [B, P, 4] float32)."""
-    cost, boxes, labels, mask = fetch(cost, pred_boxes, gt_labels, gt_mask)
-    labels, mask = labels.astype(np.int32), mask > 0
-    assigned = hungarian(cost, mask)
-    B, P = boxes.shape[:2]
-    target = np.full((B, P), n_classes, np.int32)
-    bi, gi = np.nonzero(mask)
-    target[bi, assigned[bi, gi]] = labels[bi, gi]
-    return assigned, target, boxes
+jv_assign.launches = 0
+
+
+def assign(cost: torch.Tensor, gt_labels: torch.Tensor, gt_mask: torch.Tensor,
+           n_classes: int):
+    """The assignment of a `cost_matrix` output on its device -> (assigned
+    [B, G] int64, -1 for invalid GT; target_classes [B, P] int64, each
+    patch's matched label, background = n_classes). The labels go to their
+    patches by a scatter on the device (an invalid row writes a spare
+    column that is dropped), so nothing is read back. A valid row that the
+    kernel's safety stop left at -1 (inf or NaN costs) also writes the
+    spare column: its label is dropped, not scattered out of range."""
+    B, G, P = cost.shape
+    mask = gt_mask.bool()
+    assigned = jv_assign(cost, mask).long()
+    col = torch.where(mask & (assigned >= 0), assigned, P)
+    target = torch.full((B, P + 1), n_classes, dtype=torch.long, device=cost.device)
+    target.scatter_(1, col, torch.where(mask, gt_labels.long(), n_classes))
+    return assigned, target[:, :P]
 
 
 def match(pred_sims, pred_boxes, gt_labels, gt_boxes, gt_mask,
@@ -162,7 +183,4 @@ def match(pred_sims, pred_boxes, gt_labels, gt_boxes, gt_mask,
     where ~gt_mask) and each patch's class, background = n_classes."""
     cost = cost_matrix(pred_sims, pred_boxes, gt_labels, gt_boxes, gt_mask,
                        **cost_weights)
-    assigned, target, _ = solve(cost, pred_boxes, gt_labels, gt_mask, n_classes)
-    dev = pred_boxes.device
-    return (torch.from_numpy(assigned).long().to(dev),
-            torch.from_numpy(target).long().to(dev))
+    return assign(cost, gt_labels, gt_mask, n_classes)

@@ -174,9 +174,17 @@ def broadcast_(t: torch.Tensor, group, src_rank: int = 0) -> torch.Tensor:
 
 def _local_rows(pool_local: torch.Tensor, idxs, mesh, axis: str) -> torch.Tensor:
     """Global row indices -> this rank's rows of the pool, on its device.
-    An index outside the rank's rows raises: the sampler is not aligned."""
+    An index outside the rank's rows raises: the sampler is not aligned.
+    Indices already on the pool's device stay there (no host read): the
+    range check is then an asynchronous device assertion."""
     r, dp = coords(mesh, axis)
     per = pool_local.shape[0]  # N / dp
+    if torch.is_tensor(idxs) and idxs.device == pool_local.device:
+        rows = idxs.long() - r * per
+        torch._assert_async(((rows >= 0) & (rows < per)).all(),
+                            f"rank {r} of {axis}={dp}: a pool index outside its rows "
+                            "(the sampler must be shard-aligned)")
+        return rows
     idxs = np.asarray(idxs, np.int64)
     rows = idxs - r * per
     if rows.size and (rows.min() < 0 or rows.max() >= per):
@@ -192,8 +200,9 @@ def local_gather(pool_local: torch.Tensor, idxs, mesh, axis: str = "data") -> to
     pool_local: this rank's rows [N/dp, ...] of a pool of N rows (any
     trailing rank: [N, S, D] activations or [N, S] int8 scales); idxs:
     this rank's share of a shard-aligned global index batch, [B/dp] global
-    row indices on the host (numpy or a CPU tensor), each in [r N/dp, (r+1)
-    N/dp). Returns the rows [B/dp, ...], as shard r of the JAX function's
+    row indices, each in [r N/dp, (r+1) N/dp): on the host (numpy or a CPU
+    tensor), or a tensor on the pool's device, which is never read back.
+    Returns the rows [B/dp, ...], as shard r of the JAX function's
     output."""
     return pool_local.index_select(0, _local_rows(pool_local, idxs, mesh, axis))
 

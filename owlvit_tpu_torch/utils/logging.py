@@ -28,6 +28,13 @@ class LossAccumulator:
             self._sums[k] += float(v)
         self._n += 1
 
+    def update_sums(self, sums: dict, n: int) -> None:
+        """Add n steps at once from their terms' sums (float64, added in
+        step order): the same means as n calls of update."""
+        for k, v in sums.items():
+            self._sums[k] += float(v)
+        self._n += n
+
     def means(self) -> dict:
         if self._n == 0:
             return {}

@@ -50,3 +50,17 @@ def test_binding_matches_prototype(name):
     assert len(argtypes) == len(params), (name, params, argtypes)
     for i, (decl, got) in enumerate(zip(params, argtypes)):
         assert got is _kind(decl), f"{name} parameter {i} `{decl}` bound as {got}"
+
+
+@pytest.mark.parametrize("name,params", [
+    # cost row_mask col4row | B R C | stream
+    ("owlvit_jv_assign", 7),
+    # boxes classes_in classes_out | B P background | threshold stream
+    ("owlvit_propagate_labels", 8)])
+def test_matcher_entry_points_are_bound(name, params):
+    """The matcher's two kernels (csrc/matcher.cu): a prototype and a
+    binding each, with the stream last."""
+    assert name in PROTOTYPES and name in _cuda._SIGNATURES
+    assert len(_cuda._SIGNATURES[name]) == params
+    assert _cuda._SIGNATURES[name][-1] is ctypes.c_void_p
+    assert "stream" in PROTOTYPES[name][1][-1]

@@ -75,14 +75,21 @@ def _jax_hungarian(cost, mask):
     return np.asarray(jax.vmap(jmatcher.hungarian)(jnp.asarray(cost), jnp.asarray(mask)))
 
 
-@pytest.mark.parametrize("case", ["random", "integer_ties", "masked_rows"])
+@pytest.mark.parametrize("case", ["random", "integer_ties", "masked_rows",
+                                  "duplicate_columns"])
 def test_hungarian_equals_jax(case):
+    """The numpy solver, and jv_assign on CPU tensors (which runs it),
+    against the vmapped JAX solver."""
     rng = np.random.default_rng(2)
     mask = np.ones((B, G), bool)
     if case == "random":
         cost = rng.normal(size=(B, G, P)).astype(np.float32)
     elif case == "integer_ties":  # many equal costs: the tie-breaking must agree
         cost = rng.integers(0, 3, size=(B, G, P)).astype(np.float32)
+    elif case == "duplicate_columns":  # every column twice, and masked rows
+        cost = np.tile(rng.integers(0, 3, size=(B, G, P // 2)), 2).astype(np.float32)
+        mask = rng.random((B, G)) < 0.7
+        mask[0] = True
     else:
         cost = rng.normal(size=(B, G, P)).astype(np.float32)
         mask = rng.random((B, G)) < 0.5
@@ -94,6 +101,30 @@ def test_hungarian_equals_jax(case):
     np.testing.assert_array_equal(got[~mask], -1)
     # one image alone, unbatched, gives the same rows
     np.testing.assert_array_equal(matcher.hungarian(cost[1], mask[1]), want[1])
+    got_t = matcher.jv_assign(*_t(cost, mask))
+    assert got_t.dtype == torch.int32
+    np.testing.assert_array_equal(got_t.numpy(), want)
+
+
+def test_assign_drops_a_valid_row_left_unassigned(monkeypatch):
+    """A valid row that the solver leaves at -1 (the kernel's safety stop
+    on inf or NaN costs) writes the spare column: its label goes nowhere
+    and every other row's label lands as before."""
+    sims, pred, labels, gt, mask, _ = _batch(3)
+    cost = matcher.cost_matrix(*_t(sims, pred, labels, gt, mask))
+    solve = matcher.jv_assign
+    want_a, want_t = matcher.assign(cost, *_t(labels, mask), C)
+
+    def stopped(c, m):  # row 1 of image 0 (a valid row) left unassigned
+        out = solve(c, m).clone()
+        out[0, 1] = -1
+        return out
+
+    monkeypatch.setattr(matcher, "jv_assign", stopped)
+    got_a, got_t = matcher.assign(cost, *_t(labels, mask), C)
+    assert mask[0, 1] and got_a[0, 1] == -1
+    want_t[0, want_a[0, 1]] = C
+    np.testing.assert_array_equal(got_t.numpy(), want_t.numpy())
 
 
 def test_match_equals_jax():

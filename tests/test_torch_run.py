@@ -351,12 +351,19 @@ def test_disk_store_run_equals_device_store(tmp_path):
 @pytest.mark.parametrize("training,error,match", [
     pytest.param({"mesh_data": 2}, ValueError, "mesh 2x1 needs 2 devices, have 1",
                  id="training0-mesh"),
-    pytest.param({"stage_pixels": "on"}, NotImplementedError, "stage_pixels",
-                 id="training1-stage_pixels")])
+    pytest.param({"stage_pixels": "on"}, None, None, id="training1-stage_pixels")])
 def test_unported_settings_refused(tmp_path, training, error, match):
-    """stage_pixels: on is not ported; a mesh without a process group of its
-    size is refused with the device count (the JAX package's refusal),
-    before the synthetic set is written."""
+    """A mesh without a process group of its size is refused with the
+    device count (the JAX package's refusal), before the synthetic set is
+    written. stage_pixels: on, refused before it was ported, now runs: its
+    trainer stages the train and test pixels on the device at run()."""
+    if error is None:
+        trainer = Trainer.from_config(_cfg(str(tmp_path), n_epochs=1, **training),
+                                      workdir=str(tmp_path), device="cpu")
+        assert trainer.stage_on and trainer.pix_train is None
+        trainer.run()
+        assert trainer.step == 2 and trainer.pix_train["image"].shape[0] == 8
+        return
     with pytest.raises(error, match=match):
         Trainer.from_config(_cfg(str(tmp_path), **training), workdir=str(tmp_path),
                             device="cpu")

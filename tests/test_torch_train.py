@@ -163,13 +163,25 @@ def _tiny_trainer(training: dict):
 @pytest.mark.parametrize("field,value,error,match", [
     pytest.param("mesh_data", 2, ValueError, "mesh 2x1 needs 2 devices, have 1",
                  id="mesh_data-2"),
-    pytest.param("stage_pixels", "on", NotImplementedError, "stage_pixels",
-                 id="stage_pixels-on")])
+    pytest.param("stage_pixels", "on", None, None, id="stage_pixels-on")])
 def test_unported_options_refused(field, value, error, match):
-    """stage_pixels: on is not ported. A mesh is: without a process group
-    of mesh_data x mesh_model ranks it is refused with the device count, as
-    the JAX package refuses a mesh larger than its devices, and never runs
-    on one device."""
+    """A mesh without a process group of mesh_data x mesh_model ranks is
+    refused with the device count, as the JAX package refuses a mesh larger
+    than its devices, and never runs on one device. stage_pixels: on, refused
+    before it was ported, now builds a trainer whose steps run as before
+    (the pools are staged by run(), over the trainer's datasets)."""
+    if error is None:
+        trainer = _tiny_trainer({field: value})
+        assert trainer.stage_on and trainer.pix_train is None
+        rng = np.random.default_rng(0)
+        S = get_config("tiny").vision.image_size
+        terms = trainer.train_step({
+            "image": rng.integers(0, 256, (2, S * S * 3), dtype=np.uint8),
+            "labels": np.zeros((2, 3), np.int32),
+            "boxes": np.tile(np.float32([0.1, 0.1, 0.6, 0.7]), (2, 3, 1)),
+            "gt_mask": np.array([[True, False, False]] * 2)})
+        assert terms.shape == (4,) and np.isfinite(terms).all()
+        return
     with pytest.raises(error, match=match):
         _tiny_trainer({field: value})
 

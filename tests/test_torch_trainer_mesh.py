@@ -60,7 +60,15 @@ RUNS = {
     "accum": (dict(mesh_data=2, grad_accum=2, ema_decay=0.9, checkpoint_dir="accum"), 8),
     "augment": (dict(mesh_data=2, augment=True, aug_hflip=0.5, aug_color=0.3,
                      aug_scale_min=0.9, aug_scale_max=1.1), 8),
+    # training.stage_pixels: on, uncached (every rank stages the whole set)
+    # and with the device store (each rank its own 4 rows)
+    "stage": (dict(mesh_data=2, stage_pixels="on"), 8),
+    "stage_cached": (dict(mesh_data=2, cache_backbone=True, stage_pixels="on"), 8),
+    # refused: the staged train set must divide by mesh_data
+    "stage_indivisible": (dict(mesh_data=2, stage_pixels="on"), 9),
 }
+# the runs whose from_config raises ValueError on every rank
+REFUSED = ("stage_indivisible",)
 
 
 def _cfg(root, npz, n_train=8, **training_kw):
@@ -149,7 +157,7 @@ def mesh(tmp_path_factory, npz):
                 root, training["checkpoint_dir"], "ckpt")}
         cfgs[name] = _cfg(os.path.join(root, name), npz, n_train, **training)
         runs[name] = {"config": dataclasses.asdict(cfgs[name]),
-                      "workdir": os.path.join(root, name)}
+                      "workdir": os.path.join(root, name), "refused": name in REFUSED}
     out = run_ranks("trainer_runs", 2, os.path.join(root, "ranks"), runs=runs)
     return root, {name: [o[name] for o in out] for name in RUNS}, cfgs
 
@@ -268,6 +276,46 @@ def test_augment_on_mesh_matches_single_device(mesh, tmp_path):
     single = _single(cfgs["augment"], str(tmp_path / "single"))
     _close(out["augment"][0]["queries"], single.model.queries.detach(), "augment queries")
     _close_trainable(out["augment"][0], _trainable(single), "augment vs one device")
+
+
+@pytest.mark.parametrize("run,streamed", [("stage", "dp2"), ("stage_cached", "cached")])
+def test_staged_mesh_matches_streamed_and_single_device(mesh, tmp_path, run, streamed):
+    """stage_pixels: on at dp=2: the streamed mesh run's parameters and mAP
+    bit for bit (the same batches gathered on each rank's device, the
+    device epoch from the epoch whose steps need no host bookkeeping).
+    Uncached every rank stages all 8 images, and the run is held to the
+    single-device staged run; with the device store each rank stages its
+    own 4, and the run (the shard-aligned batches) is held to the JAX
+    package's staged mesh run, within the mesh tolerances."""
+    root, out, cfgs = mesh
+    _same_on_ranks(out[run])
+    got, want = out[run][0], out[streamed][0]
+    assert torch.equal(got["queries"], want["queries"]) and got["map"] == want["map"]
+    assert all(torch.equal(a, b) for a, b in zip(got["trainable"], want["trainable"]))
+    for r in out[run]:
+        assert r["staged"] == ((8, {"image", "labels", "boxes", "gt_mask"}) if run == "stage"
+                               else (4, {"labels", "boxes", "gt_mask"}))
+        assert r["device_epochs"] == ([0, 1] if run == "stage" else [1])
+    if run == "stage_cached":
+        jq, jmap, jstep = _jax(cfgs[run], str(tmp_path / "jax"))
+        assert jstep == 4
+        _close(got["queries"], jq, f"{run} queries vs JAX mesh_data=2")
+        assert abs(got["map"] - jmap) <= ATOL_MAP
+        return
+    single = _single(cfgs[run], str(tmp_path / "single"))
+    assert single.stage_on
+    _close(got["queries"], single.model.queries.detach(), f"{run} queries vs one device")
+    _close_trainable(got, _trainable(single), f"{run} vs one device")
+    assert abs(got["map"] - single.metrics["map"]) <= ATOL_MAP
+
+
+def test_staged_mesh_refuses_an_indivisible_set(mesh):
+    """The JAX package's refusal: a staged train set of 9 images on
+    mesh_data=2, on both ranks."""
+    root, out, cfgs = mesh
+    for r in out["stage_indivisible"]:
+        assert "stage_pixels=on with mesh_data=2" in r["error"]
+        assert "(9 images) must divide by mesh_data" in r["error"]
 
 
 def test_mesh_of_one_step_is_bit_equal():

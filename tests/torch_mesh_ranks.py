@@ -142,7 +142,8 @@ def trainer_runs(rank: int, runs: dict) -> dict:
     "workdir": ...}}) as the CLI starts it: Trainer.from_config on the mesh
     its config asks for, then run(). Returns per run the trainable
     parameters (full tensors), the query bank, the last metrics, the step,
-    the store and the pool's local shape."""
+    the store and the pool's local shape, the staged pools and the device
+    epochs; a run marked "refused" returns the ValueError's message."""
     from owlvit_tpu_torch.train import Trainer
     from owlvit_tpu_torch.utils.config import Config, DataConfig, ModelConfig, TrainingConfig
 
@@ -151,7 +152,22 @@ def trainer_runs(rank: int, runs: dict) -> dict:
         c = spec["config"]
         cfg = Config(data=DataConfig(**c["data"]), training=TrainingConfig(**c["training"]),
                      model=ModelConfig(**c["model"]))
+        if spec.get("refused"):  # a config every rank must refuse
+            try:
+                Trainer.from_config(cfg, workdir=spec["workdir"], device="cpu")
+            except ValueError as exc:
+                out[name] = {"error": str(exc)}
+                continue
+            raise AssertionError(f"{name}: from_config did not refuse the config")
         trainer = Trainer.from_config(cfg, workdir=spec["workdir"], device="cpu")
+        device_epochs = []
+        run_epoch = trainer._run_epoch_device
+
+        def spy(epoch, run_epoch=run_epoch, device_epochs=device_epochs):
+            device_epochs.append(epoch)
+            return run_epoch(epoch)
+
+        trainer._run_epoch_device = spy
         metrics = trainer.run()
         pool = trainer.pool
         names = {id(p): n for n, p in trainer.model.named_parameters()}
@@ -167,6 +183,11 @@ def trainer_runs(rank: int, runs: dict) -> dict:
             "filled": None if trainer.act_store != "device" else bool(
                 trainer.filled[_own_rows(trainer)].all()),
             "ema": None if trainer.ema is None else trainer._full(trainer.ema),
+            # training.stage_pixels: the staged train rows and pools, and the
+            # epochs run as the device epoch
+            "staged": None if trainer.pix_train is None else (
+                trainer.pix_train["labels"].shape[0], set(trainer.pix_train)),
+            "device_epochs": device_epochs,
         }
     return out
 
