@@ -66,6 +66,21 @@ Phases, each printing its numbers on a line of its own:
      (3 per lane, in turns); the
      CLI's infer (bank, --queries, --query-image) and bulk-infer on 8
      make-synthetic images with --device cuda.
+ 8b. mesh_serve: DetectorServer(mesh=), B/16 bf16, random weights (seed 0),
+     240 bank queries, the slice phase's 9 images. A mesh of one
+     (cuda:0,), buckets (1, 8), bit-equal to the single-device server row
+     for row. Two shards on cuda:0, buckets (2, 8), both lanes (9 bank and
+     9 conditioned requests): each row bit-equal to a direct call on its
+     own 4-row or 1-row shard (the server's own query block for the
+     conditioned lane), each shard's pre-NMS output within TOL_SLICE of the
+     unsharded bucket's, the post-NMS rows against the single-device
+     server's counted; bulk_detect over 64 images (bank and zero-shot)
+     bit-equal to the mesh server's online rows; pk_fwd launched 12 times
+     per shard per batch (warm-up: every bucket of both lanes on every
+     shard). Then the dispatch's img/s per bucket in turns (no mesh, a mesh
+     of one, and at bucket 8 two shards on one card: no scaling figure; the
+     machine has one H100, so NCCL and multi-card serving are not
+     measured), open_vocab's windows.
   9. main_path_kernel: pk_fwd against its plain version at the shapes the
      served forward gives it ([8, 2305, 768] and [1, 2305, 768], C = 20, no
      padding) and at the train step's [32, 2305, 768] (per-row max), with
@@ -106,6 +121,15 @@ Phases, each printing its numbers on a line of its own:
      add_ln_fwd per filled batch, 2 add_ln_fwd and 2 add_ln_bwd per step,
      the attention backward the split pair as on the JAX fused branch;
      rows within rowmax/254; epoch-1 terms against the unfused run). Host wall, CUDA events per phase and peak memory of each.
+ 11b. bench_cached: utils/bench_cached.measure_cached_steady_state("b16",
+     32, 20): the prefix once, then 1 + 20 steps each of the resident, the
+     gathered (a 2 GB zero pool, 564 rows) and the split tail step
+     (AdamW 3e-6, weight decay 0.1; 16 GT slots, 8 valid); then the
+     uncached full step on the same recipe, 1 + 20 steps timed with
+     utils/profiling.StepTimer. img/s, the losses (finite), MFU from
+     utils/flops.py against chip_peak_flops(the card's name), launches
+     (11 + 63 pk_fwd and 63 pk_bwd, jv_assign, propagate_labels; then 12,
+     1, 1, 1 per uncached step), peak memory of each part.
  12. run: the fine-tune run as users start it, through Trainer.with_data
      (the smoke's own in-memory data: 96 train and 32 test 768x768 images
      of 1-4 filled rectangles on plain backgrounds, 4 classes, made with
@@ -188,7 +212,8 @@ Phases, each printing its numbers on a line of its own:
      card": no scaling figure).
 The kernels JSON (second-to-last line) gives each kernel's launches summed
 over the paths driven (serving, the open-vocabulary lanes, bulk_detect
-and the CLI's inference commands, the uncached and cached train runs, the
+and the CLI's inference commands, the mesh servers, the uncached and
+cached train runs, bench_cached's steps, the
 three fine-tune runs, the exported programs and the CLI's evals through
 and beside them, the staged and streamed runs, the training options'
 drives, the mesh phase's runs (each rank's counts added), and for the
@@ -234,8 +259,12 @@ from owlvit_tpu_torch.ops import nms as nms_ops  # noqa: E402
 from owlvit_tpu_torch.ops.quant import dequantize_rows  # noqa: E402
 from owlvit_tpu_torch.ops.preprocess import normalize_image  # noqa: E402
 from owlvit_tpu_torch.parallel import create_mesh, shard_aligned_batches  # noqa: E402
-from owlvit_tpu_torch.serve import DetectorServer, _flatten_bucket, _size_to_model  # noqa: E402
+from owlvit_tpu_torch.serve import (  # noqa: E402
+    DetectorServer, _flatten_bucket, _Request, _size_to_model)
 from owlvit_tpu_torch.train import Trainer  # noqa: E402
+from owlvit_tpu_torch.train.state import partition_params  # noqa: E402
+from owlvit_tpu_torch.utils import bench_cached, flops  # noqa: E402
+from owlvit_tpu_torch.utils.profiling import StepTimer  # noqa: E402
 from owlvit_tpu_torch.utils.config import (  # noqa: E402
     Config, DataConfig, ModelConfig, TrainingConfig)
 
@@ -1216,6 +1245,193 @@ def phase_open_vocab():
     return total
 
 
+# ------------------------------------------------------------- mesh serving
+
+MS_BUCKETS = (2, 8)  # the two-shard server's buckets: multiples of 2
+MS_BULK_IMAGES = 64
+
+
+def dispatch_img_per_s(srv, images, bucket):
+    """img/s of the server's whole dispatch of one batch (staging, the
+    shards' copies and forwards, one read per shard): one window."""
+    batch = [_Request(im, im.shape[1::-1]) for im in images[:bucket]]
+    return window_img_per_s(lambda: torch.from_numpy(srv._dispatch(batch)), bucket)
+
+
+def phase_mesh_serve():
+    """DetectorServer(mesh=) on the card, B/16 bf16, random weights (seed
+    0), 240 bank queries; the slice phase's 9 images. (a) A mesh of one,
+    buckets (1, 8): bit-equal to the single-device server row for row.
+    (b) Two shards on cuda:0, buckets (2, 8), both lanes: each row
+    bit-equal to a direct call on its own shard's rows (the server's own
+    query block for the conditioned lane), each shard's pre-NMS output
+    within TOL_SLICE of the unsharded bucket's, bulk_detect over 64 images
+    bit-equal to the online rows, pk_fwd launched L times per shard per
+    batch. (c) The dispatch's img/s per bucket: no mesh against a mesh of
+    one in turns, and two shards on one card beside them (no scaling
+    figure: one H100, so NCCL and multi-card serving stay unmeasured).
+    Returns the launches of the paths driven."""
+    cfg = get_config("b16", dtype="bfloat16")
+    L = cfg.vision.num_layers
+    params = owlvit.init(cfg, torch.Generator().manual_seed(0), num_queries=240).to("cuda")
+    S = cfg.vision.image_size
+    rng = np.random.default_rng(0)
+    images = rng.integers(0, 256, (9, S, S, 3), dtype=np.uint8)
+    tok = HashTokenizer(cfg.text.vocab_size, max_len=cfg.text.max_len)
+    exemplars = [rng.integers(0, 256, (S, S, 3), dtype=np.uint8),
+                 rng.integers(0, 256, (480, 640, 3), dtype=np.uint8)]
+    digests = [hashlib.sha1(_size_to_model(e, S).tobytes()).hexdigest() for e in exemplars]
+    total = dict.fromkeys(KERNELS, 0)
+
+    def served(srv):
+        futs = [srv.submit(im) for im in images]
+        srv.start()
+        return [f.result() for f in futs]
+
+    def same(a, b):
+        return all(np.array_equal(a[k], b[k]) for k in ("boxes", "scores", "classes")) and \
+            a.get("labels") == b.get("labels")
+
+    # (a) a mesh of one against the single-device server
+    reset_counts()
+    one = DetectorServer(params, cfg, buckets=OV_BUCKETS, device="cuda", autostart=False)
+    single_rows = served(one)
+    mesh1 = DetectorServer(params, cfg, buckets=OV_BUCKETS, mesh=("cuda:0",), autostart=False)
+    mesh1_rows = served(mesh1)
+    launches = read_counts()
+    total = {k: total[k] + launches[k] for k in KERNELS}
+    check(all(same(a, b) for a, b in zip(mesh1_rows, single_rows, strict=True)),
+          "the mesh of one differs from the single-device server")
+    check(launches == {**dict.fromkeys(KERNELS, 0), "pk_fwd": L * 2 * (2 + 2)},
+          f"mesh of one: {launches}")
+
+    # (b) two shards on cuda:0, both lanes, then bulk_detect
+    reset_counts()
+    t0 = time.perf_counter()
+    two = DetectorServer(params, cfg, buckets=MS_BUCKETS, mesh=("cuda:0", "cuda:0"),
+                         tokenizer=tok, max_queries=OV_MAX_QUERIES, one_shot=True,
+                         autostart=False)
+    warmup_s = time.perf_counter() - t0
+    bank_rows = [two.submit(im) for im in images]
+    cond_reqs = OV_REQUESTS[:len(images)]
+    cond_futs = [two.submit(im, queries=list(OV_QUERIES[j])) if kind == "zs"
+                 else two.submit(im, query_image=exemplars[j])
+                 for im, (kind, j) in zip(images, cond_reqs)]
+    two.start()
+    bank_rows = [f.result() for f in bank_rows]
+    cond_rows = [f.result() for f in cond_futs]
+    launches = read_counts()
+    stats = two.stats()
+    n_shards = len(two.mesh)
+    warm = len(MS_BUCKETS) * n_shards * 2 + 1  # both lanes on every shard, one exemplar
+    check(stats["bucket_counts"] == {2: 2, 8: 2} and stats["zs_batches"] == 2,
+          f"two shards: batches {stats}")
+    forwards = warm + n_shards * stats["batches"] + len(exemplars)
+    check(launches == {**dict.fromkeys(KERNELS, 0), "pk_fwd": L * forwards},
+          f"two shards: {launches} launches for {forwards} forwards")
+    total = {k: total[k] + launches[k] for k in KERNELS}
+
+    err_single = {"sims": 0.0, "boxes": 0.0, "scores": 0.0, "logits_max_rel": 0.0}
+    for lo in (0, 8):
+        reqs = cond_reqs[lo:lo + 8]
+        n = len(reqs)
+        bucket = next(b for b in MS_BUCKETS if b >= n)
+        flat = torch.from_numpy(_flatten_bucket(list(images[lo:lo + n]), bucket, S)).cuda()
+        qemb, qmask = query_block(two, reqs, digests)
+        check(qemb.shape[0] == bucket, f"query block {qemb.shape}")
+        with torch.inference_mode():
+            px = normalize_image(flat.reshape(bucket, S, S, 3))
+            boxes, sims = owlvit.forward_train(params, two.cfg, px)
+        cboxes, cscores, clogits = conditioned_prenms(params, two.cfg, flat, qemb, qmask)
+        for _, part in two._shards(bucket):
+            first, rows = part.start, part.stop - part.start
+            bank = two.serve_batch(flat[part]).cpu().numpy().reshape(rows, two._top_k, 7)
+            cond = two.serve_batch_conditioned(flat[part], qemb[part], qmask[part])
+            cond = cond.cpu().numpy().reshape(rows, two._top_k, 7)
+            for i in range(rows):
+                r = first + i
+                if lo + r >= len(images):
+                    continue
+                kind, j = reqs[r]
+                check(same(two._unpack_row(bank[i], (S, S)), bank_rows[lo + r]),
+                      f"bank row {lo + r} differs from its shard's direct call")
+                check(same(two._unpack_row(cond[i], (S, S), OV_QUERIES[j] if kind == "zs"
+                                           else None, one_shot=kind == "os"),
+                           cond_rows[lo + r]),
+                      f"conditioned row {lo + r} differs from its shard's direct call")
+            with torch.inference_mode():
+                sb, ss = owlvit.forward_train(params, two.cfg, px[part])
+            pb, ps, pl = conditioned_prenms(params, two.cfg, flat[part], qemb[part], qmask[part])
+            real = qmask[part][:, None, :].expand(-1, pl.shape[1], -1) > 0
+            err_single["sims"] = max(err_single["sims"], max_abs(ss, sims[part]))
+            err_single["boxes"] = max(err_single["boxes"], max_abs(sb, boxes[part]),
+                                      max_abs(pb, cboxes[part]))
+            err_single["scores"] = max(err_single["scores"], max_abs(ps, cscores[part]))
+            if real.any():  # a shard of pad rows has no query
+                err_single["logits_max_rel"] = max(err_single["logits_max_rel"],
+                                                   max_rel(pl[real], clogits[part][real]))
+    check(all(e <= TOL_SLICE for e in err_single.values()),
+          f"two shards against the unsharded bucket: {err_single}")
+    # the served rows against the single-device server's (post-NMS): the
+    # count bit-equal, and the largest difference where the kept classes agree
+    post_nms = {"rows_bit_equal": sum(same(a, b) for a, b in zip(bank_rows, single_rows)),
+                "rows": len(images), "scores_max_abs": 0.0}
+    for a, b in zip(bank_rows, single_rows):
+        if np.array_equal(a["classes"], b["classes"]):
+            post_nms["scores_max_abs"] = max(post_nms["scores_max_abs"], float(
+                np.abs(a["scores"] - b["scores"]).max(initial=0.0)))
+
+    bulk_images = list(rng.integers(0, 256, (MS_BULK_IMAGES, S, S, 3), dtype=np.uint8))
+    queries = list(OV_QUERIES[1])
+    reset_counts()
+    two.close()
+    two = DetectorServer(params, cfg, buckets=MS_BUCKETS, mesh=("cuda:0", "cuda:0"),
+                         tokenizer=tok, max_queries=OV_MAX_QUERIES, warmup=False,
+                         autostart=False)
+    futs = ([two.submit(im) for im in bulk_images]
+            + [two.submit(im, queries=queries) for im in bulk_images])
+    two.start()
+    online = [f.result() for f in futs]
+    bulk = two.bulk_detect(bulk_images) + two.bulk_detect(bulk_images, queries=queries)
+    launches = read_counts()
+    bstats = two.stats()
+    total = {k: total[k] + launches[k] for k in KERNELS}
+    per_job = MS_BULK_IMAGES // MS_BUCKETS[-1]
+    check(bstats["batches"] == 2 * per_job and bstats["bulk"]["batches"] == 2 * per_job,
+          f"bulk stats {bstats}")
+    check(launches == {**dict.fromkeys(KERNELS, 0), "pk_fwd": L * n_shards * 4 * per_job},
+          f"bulk on two shards: {launches}")
+    for i, (a, b) in enumerate(zip(online, bulk, strict=True)):
+        check(same(a, b), f"bulk row {i} differs from the mesh server's online row")
+    two.close()
+
+    # (c) the dispatch's img/s per bucket, in turns: no mesh, a mesh of one,
+    # and (at bucket 8) two shards on one card
+    two = DetectorServer(params, cfg, buckets=MS_BUCKETS, mesh=("cuda:0", "cuda:0"),
+                         autostart=False)
+    paths = {"no_mesh": one, "mesh_of_one": mesh1, "two_shards_one_card": two}
+    rates = {}
+    for bucket in OV_BUCKETS:
+        names = [n for n, s in paths.items() if bucket in s.buckets]
+        for name in names:
+            dispatch_img_per_s(paths[name], images, bucket)  # warm
+        for r in range(OV_ROUNDS):
+            for name in (names if r % 2 == 0 else names[::-1]):
+                rates.setdefault(f"{name}_b{bucket}", []).append(
+                    dispatch_img_per_s(paths[name], images, bucket))
+    for srv in paths.values():
+        srv.close()
+    rates = {k: spread(v) for k, v in rates.items()}
+    emit("mesh_serve", model="b16", dtype="bfloat16", warmup_s_two_shards=warmup_s,
+         stats_two_shards=stats, unsharded_vs_two_shards_max_abs=err_single,
+         post_nms_vs_single_device=post_nms, dispatch_img_per_s=rates,
+         note="two shards share one card: no scaling figure; NCCL and multi-card "
+              "serving are not measured (one H100)", launches=total)
+    del params, one, mesh1, two
+    torch.cuda.empty_cache()
+    return total
+
+
 def train_batch(rng, B, G, S, n_classes):
     """uint8 images (flat, as the loader sends them) and 4-10 random boxes
     per image, padded to G."""
@@ -1959,6 +2175,93 @@ def phase_train_cached(n_rows=64, batch=32, max_gt=64, n_classes=80):
          int8_err_over_rowmax_254=int8_err, **rec)
     total = {n: total[n] + rec["launches"][n] for n in KERNELS}
     del trainer, fresh, deq
+    torch.cuda.empty_cache()
+    return total
+
+
+# ------------------------------------------------------------- bench_cached
+
+BENCH_BATCH, BENCH_STEPS, BENCH_CLASSES = 32, 20, 80
+
+
+def uncached_steps(name, batch, steps, n_classes):
+    """The full train step (prefix, tail, loss, backward, AdamW) on
+    bench_cached's batch and recipe, timed per step with StepTimer ->
+    (summary, last loss)."""
+    cfg = get_config(name, dtype="bfloat16", trainable_last_k=1)
+    model = owlvit.init(cfg, torch.Generator().manual_seed(0),
+                        num_queries=3 * n_classes, device="cuda")
+    opt = torch.optim.AdamW(partition_params(model, 1), lr=3e-6, betas=(0.9, 0.999),
+                            eps=1e-8, weight_decay=0.1)
+    data = bench_cached.build_batch(cfg, batch, n_classes, 0, device="cuda")
+    timer = StepTimer()
+    for i in range(steps + 1):  # the first step warms up
+        timer.start()
+        boxes, sims = owlvit.forward_train(model, cfg, normalize_image(data["image"]))
+        loss = losses.total_loss(losses.push_pull_loss(
+            sims, boxes, data["labels"], data["boxes"], data["gt_mask"], n_classes))
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        timer.stop(loss)
+        if i == 0:
+            timer.durations.clear()
+    return timer.summary(), float(loss.detach())
+
+
+def phase_bench_cached(name="b16", batch=BENCH_BATCH, steps=BENCH_STEPS,
+                       n_classes=BENCH_CLASSES):
+    """utils/bench_cached.measure_cached_steady_state at B/16 bf16, batch
+    32, 20 steps a phase (resident, gather, split), then the uncached full
+    step on the same recipe timed with StepTimer: img/s, the loss, MFU from
+    utils/flops.py against the card's peak, launches and peak memory.
+    Returns the launches."""
+    cfg = get_config(name, dtype="bfloat16", trainable_last_k=1)
+    L = cfg.vision.num_layers
+    peak = flops.chip_peak_flops(torch.cuda.get_device_name(0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = bench_cached.measure_cached_steady_state(name, batch, steps, n_classes=n_classes,
+                                                   device="cuda")
+    wall_s = time.perf_counter() - t0
+    launches = read_counts()
+    cached_gb = torch.cuda.max_memory_allocated() / 1e9
+    tail_steps = 3 * (steps + 1)  # resident, gather, split: a warm-up step each
+    check(np.isfinite(res["loss"]), f"bench_cached loss {res['loss']}")
+    check(all(res[k] and res[k] > 0 for k in ("tail_imgs_per_sec", "gather_imgs_per_sec",
+                                               "split_gather_imgs_per_sec")), f"rates {res}")
+    check(launches == {**dict.fromkeys(KERNELS, 0), "pk_fwd": (L - 1) + tail_steps,
+                       "pk_bwd": tail_steps, **matched(tail_steps)},
+          f"bench_cached: {launches} launches for the prefix and {tail_steps} tail steps")
+    total = dict(launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    summary, loss = uncached_steps(name, batch, steps, n_classes)
+    launches = read_counts()
+    uncached_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(np.isfinite(loss), f"uncached loss {loss}")
+    check(launches == {**dict.fromkeys(KERNELS, 0), "pk_fwd": L * (steps + 1),
+                       "pk_bwd": steps + 1, **matched(steps + 1)},
+          f"uncached: {launches} launches in {steps + 1} steps")
+    total = {k: total[k] + launches[k] for k in KERNELS}
+    uncached_ips = batch / summary["p50_s"]
+    f_cached = flops.train_flops_per_image(cfg, 3 * n_classes, cached=True)
+    f_uncached = flops.train_flops_per_image(cfg, 3 * n_classes)
+    emit("bench_cached", model=name, dtype="bfloat16", batch=batch, steps=steps,
+         **res, wall_s=wall_s, uncached_imgs_per_sec=uncached_ips, uncached_loss=loss,
+         uncached_step_s=summary, chip_peak_bf16_flops=peak,
+         gflop_per_image={"cached": f_cached / 1e9, "uncached": f_uncached / 1e9},
+         mfu_cached={k: flops.mfu(res[f"{k}_imgs_per_sec"], f_cached, peak)
+                     for k in ("tail", "gather", "split_gather")},
+         mfu_uncached=flops.mfu(uncached_ips, f_uncached, peak),
+         max_memory_allocated_gb={"cached": cached_gb, "uncached": uncached_gb},
+         launches=total)
+    gc.collect()
     torch.cuda.empty_cache()
     return total
 
@@ -3160,6 +3463,7 @@ def main():
     transposed, transposed_launches = phase_kernel_transposed()
     cfg, serve_launches = phase_slice()
     open_vocab_launches = phase_open_vocab()
+    mesh_serve_launches = phase_mesh_serve()
     b16 = cfg.vision
     served = [fwd_row(b16, bucket, C) for bucket in (8, 1)]
     served.append(fwd_row(b16, 32, None))  # the train step's shape and softmax
@@ -3183,14 +3487,16 @@ def main():
     match_rows = phase_kernel_matcher(matching)
     del matching
     cached_launches = phase_train_cached()
+    bench_launches = phase_bench_cached()
     with tempfile.TemporaryDirectory() as run_dir:
         run_launches = phase_run(run_dir)
         export_launches = phase_export(run_dir)
     stage_launches = phase_stage()
     options_launches = phase_train_options()
     mesh_launches = phase_mesh()
-    launches = {k: sum(run[k] for run in (serve_launches, open_vocab_launches, train_launches,
-                                          cached_launches, run_launches, export_launches,
+    launches = {k: sum(run[k] for run in (serve_launches, open_vocab_launches,
+                                          mesh_serve_launches, train_launches, cached_launches,
+                                          bench_launches, run_launches, export_launches,
                                           stage_launches, options_launches, mesh_launches))
                 for k in KERNELS}
     # the drives of the transposed Function

@@ -315,3 +315,54 @@ def test_gpu_scripts_import_without_jax(tmp_path, script):
                          env=env, cwd=tmp_path, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+_BENCH_MESH_CODE = """
+import sys
+
+import pytest
+sys.modules["jax"] = None
+import numpy as np
+import torch
+from owlvit_tpu_torch.models import get_config, owlvit
+from owlvit_tpu_torch.serve import DetectorServer
+from owlvit_tpu_torch.utils import bench_cached, flops, profiling
+
+cfg = get_config("tiny")
+model = owlvit.init(cfg, torch.Generator().manual_seed(0), num_queries=12)
+imgs = np.random.default_rng(0).integers(0, 255, (3, 96, 96, 3), dtype=np.uint8)
+with DetectorServer(model, cfg, buckets=(2, 4), top_k=8, mesh=("cpu", "cpu")) as srv:
+    res = [f.result(timeout=120) for f in [srv.submit(im) for im in imgs]]
+    bulk = srv.bulk_detect(list(imgs))
+assert all(np.array_equal(a["scores"], b["scores"]) for a, b in zip(res, bulk))
+assert flops.chip_peak_flops("NVIDIA H100 80GB HBM3") == 989e12
+timer = profiling.StepTimer()
+timer.start()
+timer.stop(torch.ones(1))
+batch = bench_cached.build_batch(cfg, 2, 3, device="cpu")
+assert batch["image"].shape == (2, 96, 96, 3) and timer.summary()["steps"] == 1
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("owlvit_tpu", "jaxlib", "flax", "optax"))
+assert not leaked, leaked
+print("ok")
+"""
+
+
+def test_port_bench_utils_and_mesh_serve_without_jax(tmp_path):
+    """utils/{flops,profiling,bench_cached} import, and a mesh=("cpu",
+    "cpu") server serves online and in bulk, with jax impossible to import."""
+    _run(_BENCH_MESH_CODE, tmp_path)
+
+
+def test_utils_package_exports():
+    """owlvit_tpu_torch.utils exports what the JAX utils package does."""
+    import owlvit_tpu.utils as jutils
+    import owlvit_tpu_torch.utils as tutils
+    from owlvit_tpu_torch.utils import config, logging
+
+    names = ("JSONLLogger", "LossAccumulator", "ProgressFormatter", "load_config")
+    assert all(hasattr(jutils, n) for n in names)
+    assert tutils.JSONLLogger is logging.JSONLLogger
+    assert tutils.LossAccumulator is logging.LossAccumulator
+    assert tutils.ProgressFormatter is logging.ProgressFormatter
+    assert tutils.load_config is config.load_config
