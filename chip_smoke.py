@@ -8,10 +8,10 @@ Phases, each printing its numbers on a line of its own:
      backward, fused add+LayerNorm, the matcher's assignment and label
      propagation), one nvcc per source, started together;
      nvcc's registers, stack and spills per kernel, the bf16 attention
-     forward's, backward's and split pair's under keys of their own (the
-     forward and the pair's dq and dkv kernels must not spill; none may
-     carry a note that ptxas serialises its wgmma), the dq kernel's
-     dynamic shared memory, and
+     forward's, fused backward's and split pair's under keys of their own
+     (the forward and the pair's dq and dkv kernels must not spill; none
+     may carry a note that ptxas serialises its wgmma), the dq and dkv
+     kernels' dynamic shared memory, and
      the bf16 add+LN backward's per width with its dynamic shared memory
      and blocks per SM (it must not spill).
   3. kernel: pk_fwd against its plain PyTorch version on the card at the
@@ -20,9 +20,10 @@ Phases, each printing its numbers on a line of its own:
      at a B/16 layer's local shape under tp=2, [32, 2305, 384] with 6 heads
      (timed beside scaled_dot_product_attention).
   4. kernel_bwd: pk_bwd (mode "fused") and the split pair pk_dq + pk_dkv
-     (mode "both") against the plain version at the same shapes and at [8,
-     2305, 768] unpadded, bf16 and fp32; two launches of the pair bit-equal;
-     the pair again at scale 0.1 (the dq kernel's k * scale scratch); then
+     (mode "both", the default) against the plain version at the same
+     shapes and at [8, 2305, 768] unpadded, bf16 and fp32; two launches of
+     the pair bit-equal; the pair again at scale 0.1 (the dq kernel's
+     k * scale scratch, the dkv kernel's q * scale tiles); then
      pk_bwd and the pair at the tp=2 local [32, 2305, 384] with 6 heads, as
      at the train shape in phase 9.
   5. kernel_ln: add_ln forward and backward against their plain versions at
@@ -94,12 +95,16 @@ Phases, each printing its numbers on a line of its own:
  10. train: 4 uncached steps of Trainer.train_step, B/16 bf16, random
      weights (seed 0), a 240-query bank, batch 32, max_gt 64, ~7 random
      boxes per image, lr 3e-6, weight decay 0.1: finite terms, launch counts
-     (12 pk_fwd and 1 pk_bwd per step), frozen parameters bit-unchanged,
-     every trainable one moved; host wall of steps 2-4, CUDA-event times of
+     (12 pk_fwd, 1 pk_dq and 1 pk_dkv per step: the default backward is the
+     split pair), frozen parameters bit-unchanged, every trainable one
+     moved; the first step again twice from the same state: terms equal and
+     every gradient bit-equal; host wall of steps 2-4, CUDA-event times of
      each phase of the step, peak memory; jv_assign and propagate_labels
      once a step, the matcher's inputs and the assignment kept. Then the trained layer on
      the prefix output of 8 images: kernel path against the plain path,
-     forward and backward.
+     forward and backward, and both against fp32 (the default backward's q
+     and k weight grads within 0.15 of it; the same layer under
+     OWLVIT_PACKED_BWD=fused printed beside).
  10b. kernel_matcher: jv_assign and propagate_labels against the host
      solver and the host walk, exact: on the 4 train steps' own costs,
      boxes and classes (read back here only), then jv_assign on tie-heavy
@@ -113,7 +118,7 @@ Phases, each printing its numbers on a line of its own:
      pool sized for config.yaml's 2500 images, 64 of them trained on: epoch
      1 (2 steps) fills the pool, epoch 2 (2 steps, no pixels) gathers.
      Default run (bf16 pool): launch counts (11 pk_fwd per filled batch, 1
-     pk_fwd and 1 pk_bwd per step), stored rows bit-equal to a fresh
+     pk_fwd, 1 pk_dq and 1 pk_dkv per step), stored rows bit-equal to a fresh
      embed_prefix, finite terms, frozen and trainable parameters; then one
      tail step under OWLVIT_PACKED_FLASH=0 (the transposed backward) against
      the packed step from the same state (terms equal, gradients and update
@@ -126,10 +131,14 @@ Phases, each printing its numbers on a line of its own:
      gathered (a 2 GB zero pool, 564 rows) and the split tail step
      (AdamW 3e-6, weight decay 0.1; 16 GT slots, 8 valid); then the
      uncached full step on the same recipe, 1 + 20 steps timed with
-     utils/profiling.StepTimer. img/s, the losses (finite), MFU from
-     utils/flops.py against chip_peak_flops(the card's name), launches
-     (11 + 63 pk_fwd and 63 pk_bwd, jv_assign, propagate_labels; then 12,
-     1, 1, 1 per uncached step), peak memory of each part.
+     utils/profiling.StepTimer. Between them the gathered step in turns
+     with the default backward (the pair) and under OWLVIT_PACKED_BWD=fused
+     (pair, fused, fused, pair; resident and gathered steps each turn).
+     img/s, the losses (finite), MFU from utils/flops.py against
+     chip_peak_flops(the card's name), launches (11 + 63 pk_fwd and 63 of
+     each of pk_dq, pk_dkv, jv_assign, propagate_labels; each turn 11 + 42
+     pk_fwd and 42 pk_bwd or pair launches; then 12, 1, 1, 1, 1 per uncached
+     step), peak memory of each part.
  12. run: the fine-tune run as users start it, through Trainer.with_data
      (the smoke's own in-memory data: 96 train and 32 test 768x768 images
      of 1-4 filled rectangles on plain backgrounds, 4 classes, made with
@@ -145,7 +154,7 @@ Phases, each printing its numbers on a line of its own:
      the saved ones, the bank on the card with unit rows, the first eval
      batch's packed detections bit-equal to a direct forward + NMS, and the
      launches of each run (run 1: 12 pk_fwd per filled step and per eval
-     batch, 1 per gathered step, 1 pk_bwd per step). Epoch walls and img/s,
+     batch, 1 per gathered step, 1 pk_dq and 1 pk_dkv per step). Epoch walls and img/s,
      eval s/image, the bank's build time, peak memory, and whether Pillow,
      png.h and jpeglib.h exist on the machine.
  13. export: B/16 bf16, random weights (seed 0), 240 queries, batch 8:
@@ -177,8 +186,8 @@ Phases, each printing its numbers on a line of its own:
      (17.7 GB); 2 epochs, then a run resumed from the epoch-1 checkpoint
      (step 3, in the middle of an accumulation) for one more epoch. Checks:
      auto resolves to the device and the banner prints the pool and the
-     budget; 22 + 1 pk_fwd and 1 pk_bwd per filled step, 1 and 1 per
-     gathered step; the stored rows 2i and 2i+1 bit-equal to a fresh
+     budget; 22 + 1 pk_fwd and 1 pk_dq and 1 pk_dkv per filled step, 1 and
+     1 and 1 per gathered step; the stored rows 2i and 2i+1 bit-equal to a fresh
      embed_prefix of the pixels and of their mirror; the trainable
      parameters bit-unchanged after each odd micro-step, every one moved
      after each even one; the EMA bit-equal to its recursion recomputed from
@@ -195,8 +204,8 @@ Phases, each printing its numbers on a line of its own:
      lower with remat; one remat step under OWLVIT_FUSED_LN=1 (add_ln_fwd
      twice per boundary, add_ln_bwd once). (d) 2 uncached steps with augment (colour 0.4, scale
      0.7-1.3), replayed from the same states: terms bit-equal. (e) A cached
-     run with profile_dir: the Chrome trace of steps 1-2 names pk_fwd and
-     pk_bwd; its device kernels summed by name per step.
+     run with profile_dir: the Chrome trace of steps 1-2 names pk_fwd,
+     pk_dq and pk_dkv; its device kernels summed by name per step.
  15. mesh: (a) a mesh of one rank on NCCL (create_mesh(1, 1, backend=
      "nccl")): one B/16 bf16 step through the loss's count all_reduce, the
      gradient all_reduce and the tensor-parallel Functions on groups of one,
@@ -319,12 +328,13 @@ TOL_F32 = 1e-4
 # the split pair alike. fp32 (no atomics): 1e-4 of the largest magnitude,
 # summation order over up to 3712 keys.
 TOL_BWD_BF16_REL, TOL_BWD_F32_REL = 2e-2, 1e-4
-# Two launches of the fused bf16 backward on the same inputs: dk and dv
-# bit-equal; dq adds its key tiles' partials with reductions in an order that
-# changes from run to run, so its fp32 sums differ in their last bits and the
-# cast to bf16 may round an element one ulp the other way: at most 2^-7 of
-# that element, so of the largest magnitude. The split pair sums dq in a
-# fixed order: its two launches are bit-equal in dq, dk and dv.
+# Two launches of the fused bf16 backward (OWLVIT_PACKED_BWD=fused) on the
+# same inputs: dk and dv bit-equal; dq adds its key tiles' partials with
+# reductions in an order that changes from run to run, so its fp32 sums
+# differ in their last bits and the cast to bf16 may round an element one
+# ulp the other way: at most 2^-7 of that element, so of the largest
+# magnitude. The split pair, the default, sums dq, dk and dv in a fixed
+# order: its two launches are bit-equal in all three.
 TOL_DQ_REPEAT_REL = 2.0**-7
 TOL_SLICE = 3e-2  # kernel vs plain attention, pre-NMS sims and boxes, 12 bf16 layers
 # The trained layer, kernel path vs plain path under autograd, bf16, max-rel.
@@ -352,9 +362,10 @@ TOL_LN_SUM = 1e-5
 # the 11 frozen bf16 layers at bf16 noise, and a Hungarian assignment may
 # flip on a near-tie: epoch-1 loss terms rtol 2e-2 against the unfused run.
 # OWLVIT_PACKED_FLASH=0 changes only the backward (the split pair at one head
-# per sequence against the fused kernel's dq reductions), so the terms are
+# per sequence against the pair at the layer's heads), so the terms are
 # bit-equal, and the gradients of every trained parameter are within 1e-4 of
-# the packed step's in L2 norm (2.8e-6 read on the update on an H100 80GB).
+# the packed step's in L2 norm (2.8e-6 read on the update on an H100 80GB
+# when the packed step took the fused kernel).
 # The update is held to the same 1e-4, without the key bias: its gradient is
 # 0 in exact arithmetic (a per-query shift of all scores leaves the softmax
 # unchanged), so it is rounding noise that AdamW scales to a full step. Its
@@ -420,6 +431,12 @@ def matched(steps):
     """The matcher's launches in `steps` train steps: one assignment and one
     label propagation a step (the loss of each micro-step)."""
     return {"jv_assign": steps, "propagate_labels": steps}
+
+
+def pair(n):
+    """The default attention backward's launches in n trained-layer
+    backwards: the split pair, pk_dq then pk_dkv, once each."""
+    return {"pk_dq": n, "pk_dkv": n}
 
 
 def reset_counts():
@@ -551,20 +568,17 @@ def phase_build():
     build_s = time.perf_counter() - t0
     report = _cuda.ptxas_report(lib_path)
     # the bf16 attention kernels on keys of their own: the forward (both
-    # softmax modes), the backward (the key-tile kernel as the fused kernel
-    # and as the pair's dkv kernel, the delta kernel), the pair's dq kernel
-    fwd, bwd, dq = ({name: lines for name, lines in report.items()
-                     if kern in name and "bf16" in name}
-                    for kern in ("pk_fwd", "pk_bwd", "pk_dq"))
-    check(len(fwd) == 2 and len(bwd) == 3 and len(dq) == 1,
-          f"ptxas report of the bf16 attention kernels: {fwd} {bwd} {dq}")
-    # pk_bwd_bf16<false>, the pair's dkv kernel
-    dkv = {name: lines for name, lines in bwd.items() if "ILb0E" in name}
-    check(len(dkv) == 1, f"ptxas report of the bf16 dkv kernel: {bwd}")
+    # softmax modes), the fused backward (and its delta kernel), the pair's
+    # dq kernel and its dkv kernel (with and without q * scale tiles)
+    fwd, bwd, dq, dkv = ({name: lines for name, lines in report.items()
+                          if kern in name and "bf16" in name}
+                         for kern in ("pk_fwd", "pk_bwd", "pk_dq", "pk_dkv"))
+    check(len(fwd) == 2 and len(bwd) == 2 and len(dq) == 1 and len(dkv) == 2,
+          f"ptxas report of the bf16 attention kernels: {fwd} {bwd} {dq} {dkv}")
     check(all("0 bytes spill stores" in " ".join(lines)
               for lines in (*fwd.values(), *dq.values(), *dkv.values())),
           f"the bf16 attention forward or the split pair spills registers: {fwd} {dq} {dkv}")
-    serialized = {name: lines for name, lines in {**fwd, **bwd, **dq}.items()
+    serialized = {name: lines for name, lines in {**fwd, **bwd, **dq, **dkv}.items()
                   if _cuda.wgmma_serialized(lines)}
     check(not serialized, f"ptxas serialises the wgmma of bf16 attention kernels: {serialized}")
     # the bf16 add+LN backward, one instantiation per width (D = 256 .. 1024):
@@ -579,8 +593,13 @@ def phase_build():
                      "blocks_per_sm": fused_ln._bwd_resident_blocks(
                          0, fused_ln.DTYPE_CODE[torch.bfloat16], D) / sms}
                  for D in (256, 512, 768, 1024)}
-    pk_dq_bf16 = {"ptxas": next(iter(dq.values())), "dynamic_smem_bytes": _cuda.query(
-        "owlvit_pk_dq_smem_bytes", torch.device("cuda", 0))}
+    dev0 = torch.device("cuda", 0)
+    pk_dq_bf16 = {"ptxas": next(iter(dq.values())),
+                  "dynamic_smem_bytes": _cuda.query("owlvit_pk_dq_smem_bytes", dev0)}
+    # pk_dkv_bf16<false> (the scale folded) and <true> (q * scale tiles)
+    pk_dkv_bf16 = {"ptxas": dkv, "dynamic_smem_bytes": {
+        kind: _cuda.query("owlvit_pk_dkv_smem_bytes", dev0, qs)
+        for qs, kind in ((0, "scale_folded"), (1, "q_scaled_tiles"))}}
     # the matcher's two kernels (csrc/matcher.cu), one instantiation each
     match_kernels = {name: lines for name, lines in report.items()
                      if "jv_assign_kernel" in name or "propagate_labels_kernel" in name}
@@ -588,6 +607,7 @@ def phase_build():
     emit("build", seconds=build_s, library=lib_path.name, ptxas=report,
          ptxas_matcher=match_kernels,
          ptxas_pk_fwd_bf16=fwd, ptxas_pk_bwd_bf16=bwd, ptxas_pk_dq_bf16=dq, pk_dq_bf16=pk_dq_bf16,
+         pk_dkv_bf16=pk_dkv_bf16,
          ptxas_add_ln_bwd_bf16=ln_bwd,
          add_ln_bwd_bf16_by_width=ln_widths)
 
@@ -1534,7 +1554,7 @@ def phase_train(steps=4, batch=32, max_gt=64, n_classes=80):
     hook.remove()
 
     check(np.isfinite(terms).all(), f"non-finite loss terms {terms}")
-    check(launches == {**dict.fromkeys(KERNELS, 0), "pk_fwd": L * steps, "pk_bwd": steps,
+    check(launches == {**dict.fromkeys(KERNELS, 0), "pk_fwd": L * steps, **pair(steps),
                        **matched(steps)},
           f"{launches} launches in {steps} steps")
     trainable = {id(p) for p in trainer.params}
@@ -1543,12 +1563,26 @@ def phase_train(steps=4, batch=32, max_gt=64, n_classes=80):
         check(not same if id(p) in trainable else same,
               f"{'trainable' if id(p) in trainable else 'frozen'} {n}: "
               f"{'unchanged' if same else 'changed'}")
+    # the default backward is reproducible: the same step from the same
+    # state twice gives the same terms and bit-equal gradients; then the
+    # state after the 4 steps again, for the trained layer's check
+    start = copy.deepcopy(trainer.state())
+    repeat = []
+    for _ in range(2):
+        trainer.load_state(copy.deepcopy(start))
+        repeat.append((trainer.train_step(dict(batches[0])), grads_of(trainer)))
+    repeat_bit_equal = (bool(np.array_equal(repeat[0][0], repeat[1][0])) and all(
+        torch.equal(a, b) for a, b in zip(repeat[0][1], repeat[1][1])))
+    check(repeat_bit_equal, "the default step's backward differs between two runs")
+    trainer.load_state(start)
+    del start, repeat
     emit("train", model=name, dtype="bfloat16", batch=batch, steps=steps,
          max_gt=max_gt, gt_per_image=float(np.mean([b["gt_mask"].sum(1) for b in batches])),
          terms=terms, launches=launches, step_wall_ms=walls,
          img_per_s=batch * (steps - 1) / (sum(walls[1:]) / 1e3),
          phases_ms=phases, max_memory_allocated_gb=peak_gb,
-         trainable_params=len(trainer.params))
+         trainable_params=len(trainer.params), bwd_mode=fa.pk_bwd_mode(),
+         repeat_grad_bit_equal=repeat_bit_equal)
 
     # the trained layer: kernel path vs plain path, forward and backward
     n = min(8, batch)
@@ -1560,13 +1594,17 @@ def phase_train(steps=4, batch=32, max_gt=64, n_classes=80):
     cot = torch.randn(acts.shape, generator=torch.Generator(device="cuda").manual_seed(11),
                       device="cuda").to(torch.bfloat16)
     out = {}
-    for path, impl, dtype in (("kernel", "auto", torch.bfloat16),
-                              ("plain", "xla", torch.bfloat16),
-                              ("f32", "xla", torch.float32)):
+    # "kernel": the default backward (the pair); "kernel_fused": the same
+    # layer under OWLVIT_PACKED_BWD=fused, its yardstick
+    for path, impl, dtype, mode in (("kernel", "auto", torch.bfloat16, None),
+                                    ("kernel_fused", "auto", torch.bfloat16, "fused"),
+                                    ("plain", "xla", torch.bfloat16, None),
+                                    ("f32", "xla", torch.float32, None)):
         x = acts.to(dtype, copy=True).requires_grad_(True)
         layer.zero_grad(set_to_none=True)
-        y = layer(x, impl=impl)
-        y.backward(cot.to(dtype))
+        with switches(OWLVIT_PACKED_BWD=mode):
+            y = layer(x, impl=impl)
+            y.backward(cot.to(dtype))
         out[path] = dict(zip(TOL_LAYER, [y.detach(), x.grad] + [
             getattr(layer.attn, n).weight.grad for n in ("q", "k", "v", "out")]))
         del x, y
@@ -1574,9 +1612,13 @@ def phase_train(steps=4, batch=32, max_gt=64, n_classes=80):
     check(all(np.isfinite(e) and e <= TOL_LAYER[n] for n, e in err.items()),
           f"trained layer, kernel vs plain path: {err}")
     vs_f32 = {path: {name: max_rel(out[path][name], out["f32"][name]) for name in TOL_LAYER}
-              for path in ("kernel", "plain")}
-    emit("train_layer", shape=list(acts.shape), kernel_vs_plain_max_rel=err,
-         vs_f32_max_rel=vs_f32)
+              for path in ("kernel", "kernel_fused", "plain")}
+    # the default backward (the pair) against fp32 on the two grads that
+    # ds's rounding moves most
+    check(all(vs_f32["kernel"][n] <= TOL_LAYER[n] for n in ("dq_w", "dk_w")),
+          f"trained layer, kernel path vs fp32: {vs_f32['kernel']}")
+    emit("train_layer", shape=list(acts.shape), bwd_mode=fa.pk_bwd_mode(),
+         kernel_vs_plain_max_rel=err, vs_f32_max_rel=vs_f32)
     del model, trainer, before, acts, out
     torch.cuda.empty_cache()
     return launches, matching
@@ -2124,7 +2166,7 @@ def phase_train_cached(n_rows=64, batch=32, max_gt=64, n_classes=80):
     with switches(OWLVIT_FUSED_LN=None, OWLVIT_PACKED_FLASH=None):
         trainer, rec = cached_run(data, orders, batch, max_gt, n_classes)
     check(rec["launches"] == {**dict.fromkeys(KERNELS, 0),
-                              "pk_fwd": (L - 1) * fills + steps, "pk_bwd": steps,
+                              "pk_fwd": (L - 1) * fills + steps, **pair(steps),
                               **matched(steps)},
           f"cached default: {rec['launches']} launches")
     sel = orders[0][:batch]
@@ -2233,11 +2275,32 @@ def phase_bench_cached(name="b16", batch=BENCH_BATCH, steps=BENCH_STEPS,
     check(all(res[k] and res[k] > 0 for k in ("tail_imgs_per_sec", "gather_imgs_per_sec",
                                                "split_gather_imgs_per_sec")), f"rates {res}")
     check(launches == {**dict.fromkeys(KERNELS, 0), "pk_fwd": (L - 1) + tail_steps,
-                       "pk_bwd": tail_steps, **matched(tail_steps)},
+                       **pair(tail_steps), **matched(tail_steps)},
           f"bench_cached: {launches} launches for the prefix and {tail_steps} tail steps")
     total = dict(launches)
     gc.collect()
     torch.cuda.empty_cache()
+
+    # the gathered step with the default backward (the pair) and under
+    # OWLVIT_PACKED_BWD=fused, in turns: pair (above), fused, fused, pair
+    gather = {"pair": [res["gather_imgs_per_sec"]], "fused": []}
+    for mode in ("fused", "fused", "pair"):
+        with switches(OWLVIT_PACKED_BWD="fused" if mode == "fused" else None):
+            reset_counts()
+            r = bench_cached.measure_cached_steady_state(
+                name, batch, steps, n_classes=n_classes, split_gather=False, device="cuda")
+            launches = read_counts()
+        ab_steps = 2 * (steps + 1)  # resident and gather, a warm-up step each
+        bwd = {"pk_bwd": ab_steps} if mode == "fused" else pair(ab_steps)
+        check(launches == {**dict.fromkeys(KERNELS, 0), "pk_fwd": (L - 1) + ab_steps, **bwd,
+                           **matched(ab_steps)}, f"bench_cached {mode}: {launches} launches")
+        total = {k: total[k] + launches[k] for k in KERNELS}
+        gather[mode].append(r["gather_imgs_per_sec"])
+        gc.collect()
+        torch.cuda.empty_cache()
+    gather_ab = {mode: {"imgs_per_sec": ips, "step_ms": [batch / x * 1e3 for x in ips],
+                        "mean_imgs_per_sec": sum(ips) / len(ips)}
+                 for mode, ips in gather.items()}
 
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -2246,7 +2309,7 @@ def phase_bench_cached(name="b16", batch=BENCH_BATCH, steps=BENCH_STEPS,
     uncached_gb = torch.cuda.max_memory_allocated() / 1e9
     check(np.isfinite(loss), f"uncached loss {loss}")
     check(launches == {**dict.fromkeys(KERNELS, 0), "pk_fwd": L * (steps + 1),
-                       "pk_bwd": steps + 1, **matched(steps + 1)},
+                       **pair(steps + 1), **matched(steps + 1)},
           f"uncached: {launches} launches in {steps + 1} steps")
     total = {k: total[k] + launches[k] for k in KERNELS}
     uncached_ips = batch / summary["p50_s"]
@@ -2260,7 +2323,7 @@ def phase_bench_cached(name="b16", batch=BENCH_BATCH, steps=BENCH_STEPS,
                      for k in ("tail", "gather", "split_gather")},
          mfu_uncached=flops.mfu(uncached_ips, f_uncached, peak),
          max_memory_allocated_gb={"cached": cached_gb, "uncached": uncached_gb},
-         launches=total)
+         gather_pair_vs_fused=gather_ab, launches=total)
     gc.collect()
     torch.cuda.empty_cache()
     return total
@@ -2383,7 +2446,7 @@ def phase_run(workdir, n_train=96, n_test=32, batch=32, max_gt=16):
     timed_eval(trainer, record)
     metrics, launches, run1_s = drive_run(trainer)
     check(launches == {**dict.fromkeys(KERNELS, 0), "pk_fwd": L * (steps + 2 * evals) + steps,
-                       "pk_bwd": 2 * steps, **matched(2 * steps)},
+                       **pair(2 * steps), **matched(2 * steps)},
           f"run 1: {launches} launches ({steps} filled and {steps} gathered steps, "
           f"{2 * evals} eval batches)")
     total = {k: total[k] + launches[k] for k in KERNELS}
@@ -2426,7 +2489,7 @@ def phase_run(workdir, n_train=96, n_test=32, batch=32, max_gt=16):
     _, launches, run2_s = drive_run(trainer)
     check(trainer.step == 3 * steps, f"run 2 ended at step {trainer.step}")
     check(launches == {**dict.fromkeys(KERNELS, 0), "pk_fwd": L * (steps + evals),
-                       "pk_bwd": steps, **matched(steps)}, f"run 2: {launches} launches")
+                       **pair(steps), **matched(steps)}, f"run 2: {launches} launches")
     total = {k: total[k] + launches[k] for k in KERNELS}
     rows = jsonl_rows(workdir)
     check_rows(rows, 3, n_classes)
@@ -2823,7 +2886,7 @@ class StepRecorder:
     def check(self, what, n_params, L):
         for s in self.steps:
             want = {**dict.fromkeys(KERNELS, 0), "pk_fwd": 2 * (L - 1) + 1 if s["fill"] else 1,
-                    "pk_bwd": 1, **matched(1)}
+                    **pair(1), **matched(1)}
             check(s["launches"] == want, f"{what} step {s['step']}: {s['launches']} launches, "
                   f"fill={s['fill']}")
             check(s["moved"] == (n_params if s["step"] % 2 == 0 else 0),
@@ -2875,7 +2938,7 @@ def hflip_recipe_run(train_ds, test_ds, batch, max_gt, L):
               f"run 1 fills {[s['fill'] for s in rec.steps]}")
         check(launches == {**dict.fromkeys(KERNELS, 0),
                            "pk_fwd": (2 * (L - 1) + 1) * steps + steps + 2 * L * evals,
-                           "pk_bwd": 2 * steps, **matched(2 * steps)},
+                           **pair(2 * steps), **matched(2 * steps)},
               f"recipe run 1: {launches} launches")
         # the stored rows of the first filled batch against a fresh prefix of
         # its pixels as they are (rows 2i) and mirrored (rows 2i + 1)
@@ -2948,7 +3011,7 @@ def hflip_recipe_run(train_ds, test_ds, batch, max_gt, L):
         check(trainer.step == 2 * steps and [s["fill"] for s in rec2.steps] == [True] * steps,
               f"run 2 ended at step {trainer.step}, fills {[s['fill'] for s in rec2.steps]}")
         check(launches2 == {**dict.fromkeys(KERNELS, 0),
-                            "pk_fwd": (2 * (L - 1) + 1) * steps + L * evals, "pk_bwd": steps,
+                            "pk_fwd": (2 * (L - 1) + 1) * steps + L * evals, **pair(steps),
                             **matched(steps)},
               f"recipe run 2: {launches2} launches")
         rows2 = jsonl_rows(run2)
@@ -3017,9 +3080,9 @@ def hflip_cached_vs_uncached(batch, max_gt, n_classes, L, S):
     terms_u, launches_u, _, _, _ = counted_step(plain, data)
     hook.remove()
     terms_c, launches_c, _, _, _ = counted_step(cached, data)
-    check(launches_u == {**dict.fromkeys(KERNELS, 0), "pk_fwd": L, "pk_bwd": 1, **matched(1)}
+    check(launches_u == {**dict.fromkeys(KERNELS, 0), "pk_fwd": L, **pair(1), **matched(1)}
           and launches_c == {**dict.fromkeys(KERNELS, 0), "pk_fwd": 2 * (L - 1) + 1,
-                             "pk_bwd": 1, **matched(1)},
+                             **pair(1), **matched(1)},
           f"hflip steps: uncached {launches_u}, cached {launches_c}")
     rows = torch.from_numpy(2 * data["indices"] + flips).cuda()
     with torch.no_grad():
@@ -3119,7 +3182,7 @@ def augment_steps(batch, max_gt, n_classes, L, S):
         terms, launches, wall, _, _ = counted_step(trainer, b)
         first.append((terms, wall))
         total = {k: total[k] + launches[k] for k in KERNELS}
-        check(launches == {**dict.fromkeys(KERNELS, 0), "pk_fwd": L, "pk_bwd": 1, **matched(1)},
+        check(launches == {**dict.fromkeys(KERNELS, 0), "pk_fwd": L, **pair(1), **matched(1)},
               f"augment step: {launches} launches")
     again = []
     for state, b in zip(states, batches):
@@ -3166,8 +3229,9 @@ def profiled_run(train_ds, test_ds, batch, max_gt, top=12):
         size_mb = os.path.getsize(path) / 1e6
     kernels = [e for e in events if e.get("cat") == "kernel"]
     names = {e["name"] for e in kernels}
-    check(any("pk_fwd" in n for n in names) and any("pk_bwd" in n for n in names),
-          f"the trace names no pk_fwd or pk_bwd kernel: {sorted(names)[:20]}")
+    check(any("pk_fwd" in n for n in names) and any("pk_dq" in n for n in names)
+          and any("pk_dkv" in n for n in names),
+          f"the trace names no pk_fwd, pk_dq or pk_dkv kernel: {sorted(names)[:20]}")
     launcher = {e["args"]["correlation"]: e["tid"] for e in events
                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
                 and "correlation" in e.get("args", {})}

@@ -32,8 +32,9 @@
 // barriers, and one 8-warp block per SM left nothing to fill the gaps. Then
 // the dq sum across key tiles, which needs a reduction in L2.
 //
-// Design of the key-tile kernel (pk_bwd_bf16<kDq>; kDq = true is the fused
-// kernel, kDq = false the pair's dkv kernel). The TPU kernel holds a whole
+// Design of the fused kernel (pk_bwd_bf16; reached by
+// OWLVIT_PACKED_BWD=fused, the A/B yardstick: the default backward is the
+// pair). The TPU kernel holds a whole
 // K/V row in VMEM and carries fp32 dk/dv scratch across a sequential
 // query-block grid dimension. Hopper blocks run in parallel with nothing
 // carried between them, so here one block of two warpgroups owns (batch,
@@ -54,18 +55,18 @@
 // operand of dv += p^T . do (wgmma, do read along its other axis), which runs
 // while ds^T, rounded to bf16, is stored. After the turn's second barrier
 // dk += ds^T . (q*scale) runs as wgmma from shared memory (q*scale read along
-// its other axis), and in the fused kernel the tile's dq partial ds .
-// (k*scale) beside it (ds and k*scale read along their other axis; each
-// warpgroup takes 32 of dq's 64 columns), over the key chunks that hold a
-// valid key. The [64, 64] dq partial is added into the zeroed fp32 buffer
-// with four-wide vector reductions (red.global.add.v4.f32, sm_90), one pair
-// of shuffles giving each thread four consecutive columns; the wrapper casts
-// it. The reductions meet in an order that changes from launch to launch, so
-// the fused kernel's dq differs from run to run in its last fp32 bits (one
-// bf16 ulp after the cast); dk and dv do not. The key tiles of one (batch,
-// head) start their walk at different query tiles, so their reductions meet
-// on different rows. Warpgroups whose 64 keys all lie at or past valid_len
-// skip their products.
+// its other axis), and the tile's dq partial ds . (k*scale) beside it (ds
+// and k*scale read along their other axis; each warpgroup takes 32 of dq's
+// 64 columns), over the key chunks that hold a valid key. The [64, 64] dq
+// partial is added into the zeroed fp32 buffer with four-wide vector
+// reductions (red.global.add.v4.f32, sm_90), one pair of shuffles giving
+// each thread four consecutive columns; the wrapper casts it. The
+// reductions meet in an order that changes from launch to launch, so the
+// fused kernel's dq differs from run to run in its last fp32 bits (one bf16
+// ulp after the cast): it is not reproducible, and so not the default. dk
+// and dv are. The key tiles of one (batch, head) start their walk at
+// different query tiles, so their reductions meet on different rows.
+// Warpgroups whose 64 keys all lie at or past valid_len skip their products.
 //
 // Design of the pair's dq kernel (pk_dq_bf16; replaces _pk_dq_kernel, and at
 // one head the transposed _dq_kernel). Three S x S products (s, dp, dq) of
@@ -114,11 +115,63 @@
 // design) is 9% faster: what the K/V stream costs.
 // The pair computes s and dp twice (seven S x S products against five).
 //
+// Design of the pair's dk/dv kernel (pk_dkv_bf16; replaces _pk_dkv_kernel,
+// and at one head the transposed _dkv_kernel). Four S x S products (s^T,
+// dp^T, dv, dk) of 2*S*S*64 flops per (batch, head) bound it on the tensor
+// cores: 1.06 ms at [32, 2305, 768] on an H100 SXM, against 0.14 ms for its
+// bytes; beside them S*S exps, half the tensor cores' time at the MUFU's 16
+// a clock an SM. It keeps nothing that the fused kernel's dq product forced
+// on it. One block of two warpgroups owns (batch, head, 128-key tile), each
+// warpgroup 64 keys, one block an SM (234 registers a thread): the
+// warpgroup's k and v rows stay in registers as wgmma A fragments for the
+// whole walk (loaded once; where bf16(k * scale) is not exact, rounded
+// there), so every product reads only its B tile from shared memory (half
+// the shared-memory traffic of two shared operands), and dk, dv and the
+// 64-query s^T and dp^T accumulators live beside them. 64-query tiles of q
+// and do come through a four-stage ring fed by TMA (the dq kernel's 3-D
+// maps, row extent valid_len); lse and delta cannot (a [B, H, S] row at S =
+// 2305 starts 9,220 bytes after the last, not a multiple of 16), so the
+// loading warp's lanes copy them by cp.async and each arrives on the stage's
+// mbarrier once its copies land (cp.async.mbarrier.arrive.noinc: 1 + 32
+// arrivals a phase). The last live warp out of a stage refills it, as in the
+// dq kernel: no block barrier in the walk. The scores of two tiles take
+// turns in two accumulator sets (234 registers). Step t issues
+// s^T(t + 1) = k . q^T into the free set, rounds tile t's p^T and ds^T =
+// p^T (dp^T - delta) to bf16 and packs them as A fragments while it runs,
+// issues tile t's dv += p^T . do and dk += ds^T . q (q and do read along
+// their other axis) and dp^T(t + 1) = v . do^T, and runs tile t + 1's exps
+// once s^T(t + 1) is done, behind those three: no product of the
+// warpgroup waits for its own pack. The first s^T and dp^T and the last dv
+// and dk are peeled off the loop. Only the last query tile can hold rows
+// past valid_len, so only its exps test them. Where the scale is a power
+// of two <= 1 (1/8 at head dim 64) bf16(q * scale) and bf16(k * scale) are
+// exact, so the kernel reads q and k and takes the scale into the exps' FMA
+// and dk's store, with the same bits; any other scale reads q * scale tiles
+// from a scratch that a small launch fills first (kQs), k * scale from its
+// rounded fragments. No key mask runs in the walk: a key's p reaches only its
+// own dk and dv rows, which are written as 0 for keys >= valid_len; a query
+// row >= valid_len (zero-filled, or real past valid_len) reads lse as +inf,
+// so its p is 0. dk and dv are summed in registers in a fixed order and
+// written once: the same inputs give the same bits. A warpgroup whose keys
+// all lie past valid_len writes its zero rows and leaves. Steps, timed in
+// turns at [32, 2305, 768] on an H100 80GB HBM3 at 700 W
+// (tools/torch_pk_bwd_profile.py, pk_dkv alone): the fused kernel with its
+// dq product compiled out, 3.22 ms; ds^T from registers (no ds^T store, one
+// block barrier a turn), 2.91; the scale folded, 2.61; the TMA ring with
+// 64-query products, register k and v and one block an SM, 2.55; s^T(t)
+// issued with dv/dk(t - 1) and dp^T(t), 2.49-2.51; two score sets,
+// s^T(t + 1) beside the pack, 2.38; the mask test on the last tile only,
+// 2.29. Measurements, not designs: without the ex2 the kernel is 6.5%
+// faster, without the pack's FP32 arithmetic 8.9%; walking each key tile's
+// queries twice takes more than twice as long (no fixed cost a block shows,
+// so a persistent grid would buy nothing); p^T packed before dp^T's wait,
+// no gain.
+//
 // ptxas serialises every wgmma of a kernel (a C75xx note in -Xptxas -v's
 // report) when a product sits under a branch it cannot prove uniform
 // (C7520), when other instructions write a product's accumulators between
 // the fence and the commit (C7515), or when it runs out of registers for
-// them (C7512); so the warpgroup index is broadcast from lane 0, and the dq
+// them (C7512); so the warpgroup index is broadcast from lane 0, and the
 // accumulators are zeroed before the fence.
 // The fused entry point gets delta from a first small kernel (8 threads a
 // row, 16-byte loads; fp32 and the pair's fp32 dq entry point alike); the
@@ -127,9 +180,7 @@
 // kernels, so nothing is padded. fp32 inputs take two FMA kernels, one by key
 // tile (dk, dv) and one by query tile (dq), with no atomics: the fused entry
 // point launches both, the pair's entry points one each.
-// Given up: TMA and warp specialisation in the key-tile kernel (cp.async
-// feeds its ring; the products wait for their own wgmma), ds kept in fp32
-// (the TPU kernels' rounding is the contract).
+// Given up: ds kept in fp32 (the TPU kernels' rounding is the contract).
 
 #include <cuda.h>  // CUtensorMap; its encoder is reached through the runtime (no -lcuda)
 #include <cuda_bf16.h>
@@ -227,16 +278,17 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// ks = bf16(k * scale), eight values a thread: the dq kernel's K tiles where
-// that rounding is not exact (n8: the number of 8-value chunks)
+// xs = bf16(x * scale), eight values a thread, where that rounding is not
+// exact: the dq kernel's K tiles (x = k) and the dkv kernel's q * scale
+// tiles (x = q); n8: the number of 8-value chunks
 __global__ void __launch_bounds__(256)
-    k_scaled_bf16(const __nv_bfloat16* __restrict__ k, __nv_bfloat16* __restrict__ ks,
-                  long long n8, float scale) {
+    scaled_bf16(const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ xs,
+                long long n8, float scale) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= n8) return;
-  uint4 x = *reinterpret_cast<const uint4*>(k + idx * 8);
-  scale_bf16x8(x, scale);
-  *reinterpret_cast<uint4*>(ks + idx * 8) = x;
+  uint4 v = *reinterpret_cast<const uint4*>(x + idx * 8);
+  scale_bf16x8(v, scale);
+  *reinterpret_cast<uint4*>(xs + idx * 8) = v;
 }
 
 // Query tile q0 (q, do, lse, delta of one head) into ring stage `stage`, by
@@ -264,9 +316,7 @@ __device__ __forceinline__ void load_query_tile(BwdSmem& sm, int stage,
   }
 }
 
-// kDq: the fused kernel (dq partials added into dq_acc); else the pair's
-// dkv kernel (dq_acc unused).
-template <bool kDq>
+// The fused kernel: dk and dv by key tile, dq partials added into dq_acc.
 __global__ void __launch_bounds__(kThreads, 2)
     pk_bwd_bf16(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
@@ -461,11 +511,9 @@ __global__ void __launch_bounds__(kThreads, 2)
     // (C7515) when other instructions write a product's accumulators
     // between the fence and the commit
     float acc[4][4];
-    if constexpr (kDq) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-      fence_operands(acc);
-    }
+    for (int j = 0; j < 4; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    fence_operands(acc);
     wgmma_fence();
     if (live) {  // dk += ds^T . (q*scale), q*scale read along its other axis
       const uint64_t dsdesc = sw128_desc(sm.ds + wg * 64 * kHd);
@@ -479,7 +527,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     // and columns 32 wg .. 32 wg + 31 (warp w: queries 16 qg .. 16 qg + 15),
     // ds read from ds^T and k*scale from its 64-column rows at an offset of
     // 32 wg columns, both along their other axis
-    if constexpr (kDq) {
+    {
       const uint64_t dsdesc = sw128_desc(sm.ds), kdesc = sw128_desc(sm.k + wg * 32);
       for (int c = 0; c < n_kc; ++c)
         wgmma_m64n32k16_tt(&acc[0][0], dsdesc + 128 * c, kdesc + 128 * c);
@@ -487,7 +535,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     wgmma_commit();
     wgmma_wait();  // the dk and dq products
     if (live) fence_operands(dk_acc);
-    if constexpr (kDq) {
+    {
       fence_operands(acc);
       // each thread holds (row g: 2 columns, row g+8: 2 columns) per column
       // tile; one exchange with lane t4 ^ 1 gives the even lane four columns
@@ -790,6 +838,332 @@ __global__ void __launch_bounds__(kDqThreads, 2)
   }
 }
 
+// The pair's bf16 dk/dv kernel: one block of two warpgroups per (batch,
+// head, 128-key tile), one block an SM, each warpgroup 64 keys (each warp
+// 16) with their k and v rows in registers as wgmma A fragments and dk, dv
+// in fp32 registers; 64-query tiles of q and do (and q * scale where that
+// rounding is not exact, kQs) come through a four-stage ring fed by TMA,
+// lse and delta beside them by cp.async on the stage's mbarrier.
+constexpr int kDkvWgs = 2;              // warpgroups per block
+constexpr int kDkvThreads = 128 * kDkvWgs;
+constexpr int kDkvBk = 64 * kDkvWgs;    // keys per block
+constexpr int kDkvBq = 64;              // query rows per tile
+constexpr int kDkvStages = 4;
+constexpr int kDkvCols = kDkvBq / 8;    // 8-query column tiles of a tile's scores
+constexpr int kDkvTileBytes = kDkvBq * kHd * 2;  // one bf16 q, do or q*scale tile
+// a stage completes on one arrival with its TMA bytes (the loading warp's
+// lane 0) and one cp.async arrival from each of that warp's 32 lanes
+constexpr int kDkvArrivals = 1 + 32;
+
+// The dkv kernel's dynamic shared memory (75 KB, 99 KB with the q * scale
+// tiles, plus 1 KB to align it), every tile in the 128-byte swizzled layout.
+template <bool kQs>
+struct __align__(1024) DkvSmem {
+  __nv_bfloat16 q[kDkvStages][kDkvBq * kHd];
+  __nv_bfloat16 dout[kDkvStages][kDkvBq * kHd];
+  __nv_bfloat16 qs[kQs ? kDkvStages : 1][kDkvBq * kHd];  // q * scale (kQs only)
+  float lse[kDkvStages][kDkvBq];
+  float delta[kDkvStages][kDkvBq];
+  uint64_t full[kDkvStages];      // the stage's tiles, lse and delta have landed
+  unsigned int done[kDkvStages];  // warps done with the stage, counted up
+};
+template <bool kQs>
+constexpr int dkv_smem_bytes() { return sizeof(DkvSmem<kQs>) + 1024; }
+
+// The thread's A fragments (rows r, r + 8 of the warpgroup's 64 keys; every
+// 16-column chunk of the head) of a bf16 [B, S, D] tensor at row `key`
+// (rows >= S are zero), each value rounded to bf16(x * scale) when kScale.
+template <bool kScale>
+__device__ __forceinline__ void load_rows_a(uint32_t (&a)[kHd / 16][4],
+                                            const __nv_bfloat16* __restrict__ x, size_t base,
+                                            int key, int S, int D, int t4, float scale) {
+#pragma unroll
+  for (int kk = 0; kk < kHd / 16; ++kk) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = key + (e & 1) * 8, col = kk * 16 + (e >> 1) * 8 + t4 * 2;
+      uint32_t w = 0u;
+      if (row < S) w = *reinterpret_cast<const uint32_t*>(x + base + (size_t)row * D + col);
+      if constexpr (kScale) {
+        const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&w);
+        w = pack_bf16(__bfloat162float(__float2bfloat16_rn(__low2float(v) * scale)),
+                      __bfloat162float(__float2bfloat16_rn(__high2float(v) * scale)));
+      }
+      a[kk][e] = w;
+    }
+  }
+}
+
+// acc (=)= a . b^T over the head's 64 columns: a the warpgroup's 64 key rows
+// from registers, b a 64-row tile K-major in shared memory (s^T = k . q^T,
+// dp^T = v . do^T); the first k-step overwrites. One commit group, not
+// waited for.
+__device__ __forceinline__ void issue_rows(float (&acc)[kDkvCols][4],
+                                           const uint32_t (&a)[kHd / 16][4], uint64_t bdesc) {
+#pragma unroll
+  for (int kk = 0; kk < kHd / 16; ++kk)
+    wgmma_m64n64k16_rs(&acc[0][0], a[kk], bdesc + 2 * kk, kk);
+  wgmma_commit();
+}
+
+// acc += a . b over a 64-query tile: a (p^T or ds^T) from registers (a[c],
+// the A fragment of 16-query chunk c), b the tile read along its other
+// axis (do for dv, q or q * scale for dk). Not committed.
+__device__ __forceinline__ void issue_cols(float (&acc)[kHd / 8][4],
+                                           const uint32_t (&a)[kDkvCols / 2][4], uint64_t bdesc) {
+#pragma unroll
+  for (int c = 0; c < kDkvCols / 2; ++c) wgmma_m64n64k16_bt(&acc[0][0], a[c], bdesc + 128 * c);
+}
+
+template <bool kQs>
+__global__ void __launch_bounds__(kDkvThreads, 1)
+    pk_dkv_bf16(const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int S, int H,
+                int valid_len, float scale, const __grid_constant__ CUtensorMap qmap,
+                const __grid_constant__ CUtensorMap dmap,
+                const __grid_constant__ CUtensorMap qsmap) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  DkvSmem<kQs>& sm = *reinterpret_cast<DkvSmem<kQs>*>(
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023));
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * kDkvBk;
+  const int D = H * kHd;
+  const size_t base = (size_t)b * S * D + (size_t)h * kHd;
+  const size_t rbase = ((size_t)b * H + h) * S;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;  // mma group row, column pair
+  // warpgroup: keys k0 + 64 wg .. + 63; broadcast from lane 0 so that the
+  // compiler sees it uniform over the warp
+  const int wg = __shfl_sync(0xffffffffu, warp >> 2, 0);
+  const int key0 = k0 + wg * 64 + (warp & 3) * 16 + g, key1 = key0 + 8;  // this thread's rows
+
+  // dk and dv rows of this thread: keys >= valid_len get 0 (their p was
+  // never masked: it reaches only their own rows)
+  auto store = [&](const float (&dka)[kHd / 8][4], const float (&dva)[kHd / 8][4], float ks) {
+#pragma unroll
+    for (int d = 0; d < kHd / 8; ++d) {
+      const int c = d * 8 + t4 * 2;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int key = r ? key1 : key0;
+        if (key >= S) continue;
+        const bool ok = key < valid_len;
+        const size_t at = base + (size_t)key * D + c;
+        *reinterpret_cast<__nv_bfloat162*>(dk + at) = __floats2bfloat162_rn(
+            ok ? dka[d][2 * r] * ks : 0.f, ok ? dka[d][2 * r + 1] * ks : 0.f);
+        *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+            __floats2bfloat162_rn(ok ? dva[d][2 * r] : 0.f, ok ? dva[d][2 * r + 1] : 0.f);
+      }
+    }
+  };
+  float dka[kHd / 8][4], dva[kHd / 8][4];  // dk, dv rows key0 / key1, 8 column tiles of 8
+#pragma unroll
+  for (int d = 0; d < kHd / 8; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[d][e] = dva[d][e] = 0.f;
+  if (k0 >= valid_len) {  // every key of the block is masked
+    store(dka, dva, 0.f);
+    return;
+  }
+
+  // query rows >= valid_len add nothing: the walk stops at the last tile
+  // holding a valid row, and inside it their lse reads as +inf (p = 0)
+  const int n_qt = (valid_len + kDkvBq - 1) / kDkvBq;
+  const unsigned live_warps = 4 * min(kDkvWgs, (valid_len - k0 + 63) / 64);
+  // query tile t into its stage, by one whole warp: lane 0 has the copy
+  // engine bring q and do (and q * scale) (the maps' row extent is
+  // valid_len: rows past it land as zeros), each lane copies 2 of the
+  // tile's 64 lse and delta values by cp.async (zero past valid_len) and
+  // arrives on the stage's mbarrier once they have landed
+  auto load = [&](int t) {
+    const int st = t % kDkvStages, q0 = t * kDkvBq;
+    if (lane == 0) {
+      mbar_expect_tx(&sm.full[st], (kQs ? 3 : 2) * kDkvTileBytes);
+      tma_load_3d(sm.q[st], &qmap, &sm.full[st], h * kHd, q0, b);
+      tma_load_3d(sm.dout[st], &dmap, &sm.full[st], h * kHd, q0, b);
+      if constexpr (kQs) tma_load_3d(sm.qs[st], &qsmap, &sm.full[st], h * kHd, q0, b);
+    }
+#pragma unroll
+    for (int i = lane; i < kDkvBq; i += 32) {
+      const bool in = q0 + i < valid_len;
+      const size_t at = rbase + (in ? q0 + i : 0);
+      cp_async4(sm.lse[st] + i, lse + at, in);
+      cp_async4(sm.delta[st] + i, delta + at, in);
+    }
+    cp_async_mbar_arrive_noinc(&sm.full[st]);
+  };
+  if (warp == 0) {  // fill the ring while the k and v rows load
+    if (lane == 0) {
+      for (int st = 0; st < kDkvStages; ++st) {
+        mbar_init(&sm.full[st], kDkvArrivals);
+        sm.done[st] = 0;
+      }
+      fence_mbarrier_init();
+    }
+    __syncwarp();
+    for (int t = 0; t < kDkvStages && t < n_qt; ++t) load(t);
+  }
+  // k (k * scale rounded to bf16 where that is not exact) and v rows as A
+  // fragments, for the whole walk
+  uint32_t kf[kHd / 16][4], vf[kHd / 16][4];
+  load_rows_a<kQs>(kf, k, base, key0, S, D, t4, scale);
+  load_rows_a<false>(vf, v, base, key0, S, D, t4, 1.f);
+  __syncthreads();  // the mbarriers and the counters are in place
+  // A warpgroup whose keys all lie at or past valid_len (the second of the
+  // last key tile at S = 2305) has nothing to compute: it writes its zero
+  // rows and leaves, and the stages' releases count the other warps alone.
+  if (k0 + wg * 64 >= valid_len) {
+    store(dka, dva, 0.f);
+    return;
+  }
+  fence_operands(dka);  // the zeros are written before the first product's fence
+  fence_operands(dva);
+
+  // where the scale is exact in bf16 (kQs false) the products read k and q
+  // unscaled: the exps' FMA takes the scale for s^T, dk's store for dk
+  const float sl = (kQs ? 1.f : scale) * kLog2e;
+  // s^T, then p^T, of two tiles in turn; dp^T (keys x queries)
+  float sa[kDkvCols][4], sb[kDkvCols][4], dp[kDkvCols][4];
+  uint32_t pa[kDkvCols / 2][4], da[kDkvCols / 2][4];  // p^T and ds^T in bf16, A fragments
+
+  auto wait_tile = [&](int t) {
+    mbar_wait(&sm.full[t % kDkvStages], (t / kDkvStages) & 1);
+  };
+  // This warp's products that read tile t have completed; the last of the
+  // block's live warps to say so refills the stage with tile t + kDkvStages.
+  // No block barrier: a warpgroup waits only for the tiles it reads.
+  auto release = [&](int t) {
+    unsigned last = 0;
+    if (lane == 0)
+      last = atomicAdd(&sm.done[t % kDkvStages], 1u) % live_warps == live_warps - 1;
+    last = __shfl_sync(0xffffffffu, last, 0);
+    if (last && t + kDkvStages < n_qt) load(t + kDkvStages);
+    __syncwarp();
+  };
+  auto qdesc = [&](int t) { return sw128_desc(sm.q[t % kDkvStages]); };
+  auto ddesc = [&](int t) { return sw128_desc(sm.dout[t % kDkvStages]); };
+  auto qkdesc = [&](int t) {  // dk's B: q, or q * scale
+    return sw128_desc(kQs ? sm.qs[t % kDkvStages] : sm.q[t % kDkvStages]);
+  };
+  // p^T = exp(s^T - lse) = 2^(s sl - lse log2(e)) in place in s (one FMA and
+  // one ex2); lse of rows >= valid_len reads as +inf, a test that only the
+  // last tile needs
+  auto exps = [&](float (&s)[kDkvCols][4], int t) {
+    const float* l = sm.lse[t % kDkvStages];
+    const int q0 = t * kDkvBq;
+    if (q0 + kDkvBq <= valid_len) {  // every row of the tile is valid
+#pragma unroll
+      for (int j = 0; j < kDkvCols; ++j) {
+        const float2 lv = *reinterpret_cast<const float2*>(l + j * 8 + t4 * 2);
+        const float le0 = lv.x * kLog2e, le1 = lv.y * kLog2e;
+        s[j][0] = ex2(fmaf(s[j][0], sl, -le0));
+        s[j][1] = ex2(fmaf(s[j][1], sl, -le1));
+        s[j][2] = ex2(fmaf(s[j][2], sl, -le0));
+        s[j][3] = ex2(fmaf(s[j][3], sl, -le1));
+      }
+      return;
+    }
+#pragma unroll
+    for (int j = 0; j < kDkvCols; ++j) {
+      const int c = j * 8 + t4 * 2;
+      const float2 lv = *reinterpret_cast<const float2*>(l + c);
+      const float le0 = q0 + c < valid_len ? lv.x * kLog2e : INFINITY;
+      const float le1 = q0 + c + 1 < valid_len ? lv.y * kLog2e : INFINITY;
+      s[j][0] = ex2(fmaf(s[j][0], sl, -le0));
+      s[j][1] = ex2(fmaf(s[j][1], sl, -le1));
+      s[j][2] = ex2(fmaf(s[j][2], sl, -le0));
+      s[j][3] = ex2(fmaf(s[j][3], sl, -le1));
+    }
+  };
+  // p^T rounded to bf16, and ds^T = p^T (dp^T - delta) in fp32 rounded to
+  // bf16: the C fragments of column tiles 2c, 2c+1 are the A fragment of
+  // 16-query chunk c
+  auto pack = [&](const float (&s)[kDkvCols][4], int t) {
+    const float* dl = sm.delta[t % kDkvStages];
+#pragma unroll
+    for (int c = 0; c < kDkvCols / 2; ++c) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int j = 2 * c + hh;
+        const float2 d = *reinterpret_cast<const float2*>(dl + j * 8 + t4 * 2);
+        pa[c][2 * hh] = pack_bf16(s[j][0], s[j][1]);
+        pa[c][2 * hh + 1] = pack_bf16(s[j][2], s[j][3]);
+        da[c][2 * hh] = pack_bf16(s[j][0] * (dp[j][0] - d.x), s[j][1] * (dp[j][1] - d.y));
+        da[c][2 * hh + 1] = pack_bf16(s[j][2] * (dp[j][2] - d.x), s[j][3] * (dp[j][3] - d.y));
+      }
+    }
+  };
+
+  // Tile t's p^T sits in `cur` (its exps done) and its dp^T is done; tile
+  // t - 1's dv and dk are done. A step issues s^T(t + 1) into `nxt`, packs
+  // tile t's p^T and ds^T while it runs, issues tile t's dv and dk and then
+  // dp^T(t + 1), and runs tile t + 1's exps once s^T(t + 1) is done, behind
+  // those three. The two score buffers take turns, so that no product waits
+  // for the pack and no step writes a buffer a product still reads.
+  auto step = [&](float (&cur)[kDkvCols][4], float (&nxt)[kDkvCols][4], int t) {
+    wait_tile(t + 1);
+    wgmma_fence();
+    issue_rows(nxt, kf, qdesc(t + 1));
+    pack(cur, t);
+    wgmma_fence();
+    issue_cols(dva, pa, ddesc(t));
+    issue_cols(dka, da, qkdesc(t));
+    wgmma_commit();
+    issue_rows(dp, vf, ddesc(t + 1));
+    wgmma_wait_n<2>();  // s^T(t + 1), committed first
+    fence_operands(nxt);
+    exps(nxt, t + 1);
+    wgmma_wait_n<1>();  // tile t's dv and dk: pa and da are free, the stage too
+    fence_operands(dka);
+    fence_operands(dva);
+    fence_operands(pa);
+    fence_operands(da);
+    release(t);
+    wgmma_wait_n<0>();  // dp^T(t + 1)
+    fence_operands(dp);
+  };
+  // the last tile's dv and dk
+  auto finish = [&](const float (&cur)[kDkvCols][4], int t) {
+    pack(cur, t);
+    wgmma_fence();
+    issue_cols(dva, pa, ddesc(t));
+    issue_cols(dka, da, qkdesc(t));
+    wgmma_commit();
+    wgmma_wait_n<0>();
+    fence_operands(dka);
+    fence_operands(dva);
+    fence_operands(pa);
+    fence_operands(da);
+  };
+
+  // The first s^T and dp^T are peeled off the loop and the last dv and dk
+  // follow it, so that no product sits under a branch that differs
+  // between the steps.
+  wait_tile(0);
+  wgmma_fence();
+  issue_rows(sa, kf, qdesc(0));
+  issue_rows(dp, vf, ddesc(0));
+  wgmma_wait_n<1>();
+  fence_operands(sa);
+  exps(sa, 0);
+  wgmma_wait_n<0>();
+  fence_operands(dp);
+  int t = 0;
+  for (; t + 2 < n_qt; t += 2) {
+    step(sa, sb, t);
+    step(sb, sa, t + 1);
+  }
+  if (t + 1 < n_qt) {
+    step(sa, sb, t);
+    finish(sb, t + 1);
+  } else {
+    finish(sa, t);
+  }
+  store(dka, dva, kQs ? 1.f : scale);
+}
+
 // fp32, by key tile: two threads per key, each owning 32 of the 64 columns;
 // queries stream through shared memory 32 rows at a time.
 __global__ void __launch_bounds__(2 * kRowsF)
@@ -1022,17 +1396,18 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The TMA map of the dq kernel's K or V tiles in a bf16 [B, S, D] tensor x:
-// a 3-D view (column, key, sequence) whose key extent is valid_len, so that
-// the copy engine zero-fills keys >= valid_len as it does past a tensor's
-// end; a box is 64 columns (one head) x 64 keys x 1 sequence, landing as
-// 128-byte rows with the 128-byte swizzle (sw_at, sw128_desc).
-cudaError_t dq_tile_map(CUtensorMap* map, const void* x, int B, int S, int D, int valid_len) {
+// The TMA map of 64-row tiles of a bf16 [B, S, D] tensor x (the dq kernel's
+// K and V tiles, the dkv kernel's q, do and q * scale tiles): a 3-D view
+// (column, row, sequence) whose row extent is valid_len, so that the copy
+// engine zero-fills rows >= valid_len as it does past a tensor's end; a box
+// is 64 columns (one head) x 64 rows x 1 sequence, landing as 128-byte rows
+// with the 128-byte swizzle (sw_at, sw128_desc).
+cudaError_t tile_map(CUtensorMap* map, const void* x, int B, int S, int D, int valid_len) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)valid_len, (cuuint64_t)B};
   const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};  // bytes
-  const cuuint32_t box[3] = {kHd, kDqBk, 1}, elem[3] = {1, 1, 1};
+  const cuuint32_t box[3] = {kHd, 64, 1}, elem[3] = {1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), dims,
                             strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
@@ -1046,26 +1421,44 @@ cudaError_t dq_bf16_smem() {
   return set_smem_once(pk_dq_bf16, kDqSmemBytes, smem_set);
 }
 
-// the bf16 key-tile kernel's shared memory limit, set before its first launch
-template <bool kDq>
+// the fused bf16 kernel's shared memory limit, set before its first launch
 cudaError_t bwd_bf16_smem() {
   static bool smem_set[kMaxDevices];
-  return set_smem_once(pk_bwd_bf16<kDq>, kSmemBytes, smem_set);
+  return set_smem_once(pk_bwd_bf16, kSmemBytes, smem_set);
 }
 
-// the bf16 key-tile kernel: fused (kDq, dq added into the fp32 dq_acc) or
-// the pair's dkv kernel
-template <bool kDq>
+// the bf16 dkv kernel's shared memory limit, set before its first launch
+template <bool kQs>
+cudaError_t dkv_bf16_smem() {
+  static bool smem_set[kMaxDevices];
+  return set_smem_once(pk_dkv_bf16<kQs>, dkv_smem_bytes<kQs>(), smem_set);
+}
+
+// the fused bf16 kernel (dq added into the fp32 dq_acc)
 void launch_bwd_bf16(const void* q, const void* k, const void* v, const void* dout,
                      const void* lse, const void* delta, void* dq_acc, void* dk, void* dv,
                      int B, int S, int H, int valid_len, float scale, cudaStream_t st) {
   using bf = __nv_bfloat16;
   const dim3 grid((S + kBk - 1) / kBk, H, B);
-  pk_bwd_bf16<kDq><<<grid, kThreads, kSmemBytes, st>>>(
+  pk_bwd_bf16<<<grid, kThreads, kSmemBytes, st>>>(
       static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
       static_cast<const bf*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<float*>(dq_acc), static_cast<bf*>(dk),
       static_cast<bf*>(dv), S, H, valid_len, scale);
+}
+
+// the bf16 dkv kernel, q * scale tiles from qsmap (kQs) or the scale folded
+template <bool kQs>
+void launch_dkv_bf16(const void* k, const void* v, const void* lse, const void* delta, void* dk,
+                     void* dv, int B, int S, int H, int valid_len, float scale,
+                     const CUtensorMap& qmap, const CUtensorMap& dmap, const CUtensorMap& qsmap,
+                     cudaStream_t st) {
+  using bf = __nv_bfloat16;
+  const dim3 grid((S + kDkvBk - 1) / kDkvBk, H, B);
+  pk_dkv_bf16<kQs><<<grid, kDkvThreads, dkv_smem_bytes<kQs>(), st>>>(
+      static_cast<const bf*>(k), static_cast<const bf*>(v), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf*>(dk), static_cast<bf*>(dv), S, H,
+      valid_len, scale, qmap, dmap, qsmap);
 }
 
 void launch_dkdv_f32(const void* q, const void* k, const void* v, const void* dout,
@@ -1107,12 +1500,12 @@ extern "C" int owlvit_pk_bwd(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    const cudaError_t err = bwd_bf16_smem<true>();
+    const cudaError_t err = bwd_bf16_smem();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   launch_delta(dout, o, delta, B, S, H, dtype, st);
   if (dtype == 1) {
-    launch_bwd_bf16<true>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, H, valid_len, scale, st);
+    launch_bwd_bf16(q, k, v, dout, lse, delta, dq, dk, dv, B, S, H, valid_len, scale, st);
   } else {
     launch_dkdv_f32(q, k, v, dout, lse, delta, dk, dv, B, S, H, valid_len, scale, st);
     launch_dq_f32(q, k, v, dout, lse, delta, dq, B, S, H, valid_len, scale, st);
@@ -1142,13 +1535,13 @@ extern "C" int owlvit_pk_dq(const void* q, const void* k, const void* v, const v
     if (err != cudaSuccess) return static_cast<int>(err);
     CUtensorMap kmap, vmap;  // K tiles from ks (or k), V tiles from v
     const int D = H * kHd;
-    if ((err = dq_tile_map(&kmap, ks ? ks : k, B, S, D, valid_len)) != cudaSuccess ||
-        (err = dq_tile_map(&vmap, v, B, S, D, valid_len)) != cudaSuccess)
+    if ((err = tile_map(&kmap, ks ? ks : k, B, S, D, valid_len)) != cudaSuccess ||
+        (err = tile_map(&vmap, v, B, S, D, valid_len)) != cudaSuccess)
       return static_cast<int>(err);
     using bf = __nv_bfloat16;
     if (ks) {
       const long long n8 = (long long)B * S * D / 8;
-      k_scaled_bf16<<<static_cast<int>((n8 + 255) / 256), 256, 0, st>>>(
+      scaled_bf16<<<static_cast<int>((n8 + 255) / 256), 256, 0, st>>>(
           static_cast<const bf*>(k), static_cast<bf*>(ks), n8, scale);
     }
     const dim3 grid((S + kDqBq - 1) / kDqBq, H, B);
@@ -1167,21 +1560,50 @@ extern "C" int owlvit_pk_dq(const void* q, const void* k, const void* v, const v
 extern "C" int owlvit_pk_dq_smem_bytes() { return kDqSmemBytes; }
 
 // Mode "both", second half: dk and dv in the input dtype, by key tile, from
-// the delta owlvit_pk_dq wrote on the same stream.
+// the delta owlvit_pk_dq wrote on the same stream. bf16: q * scale is
+// rounded to bf16 (the TPU kernel's rounding point); where scale is a power
+// of two <= 1 that rounding is exact, so qs may be null and the kernel
+// applies the scale to its fp32 scores and dk, which gives the same bits.
+// Else qs is [B, S, D] bf16 scratch, filled with q * scale by a launch
+// before it. fp32 takes no qs.
 extern "C" int owlvit_pk_dkv(const void* q, const void* k, const void* v, const void* lse,
-                             const void* dout, const void* delta, void* dk, void* dv, int B,
-                             int S, int H, int hd, int valid_len, float scale, int dtype,
+                             const void* dout, const void* delta, void* dk, void* dv, void* qs,
+                             int B, int S, int H, int hd, int valid_len, float scale, int dtype,
                              void* stream) {
-  if (!valid_shape(B, S, H, hd, valid_len) || (dtype != 0 && dtype != 1))
+  int exp2 = 0;
+  const bool exact = scale > 0.f && scale <= 1.f && frexpf(scale, &exp2) == 0.5f;
+  if (!valid_shape(B, S, H, hd, valid_len) || (dtype != 0 && dtype != 1) ||
+      (dtype == 1 && qs == nullptr && !exact))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    const cudaError_t err = bwd_bf16_smem<false>();
+    using bf = __nv_bfloat16;
+    cudaError_t err = qs ? dkv_bf16_smem<true>() : dkv_bf16_smem<false>();
     if (err != cudaSuccess) return static_cast<int>(err);
-    launch_bwd_bf16<false>(q, k, v, dout, lse, delta, nullptr, dk, dv, B, S, H, valid_len,
-                           scale, st);
+    CUtensorMap qmap, dmap, qsmap;  // q, do and q * scale tiles (qsmap: a copy of qmap if unused)
+    const int D = H * kHd;
+    if ((err = tile_map(&qmap, q, B, S, D, valid_len)) != cudaSuccess ||
+        (err = tile_map(&dmap, dout, B, S, D, valid_len)) != cudaSuccess ||
+        (err = tile_map(&qsmap, qs ? qs : q, B, S, D, valid_len)) != cudaSuccess)
+      return static_cast<int>(err);
+    if (qs) {
+      const long long n8 = (long long)B * S * D / 8;
+      scaled_bf16<<<static_cast<int>((n8 + 255) / 256), 256, 0, st>>>(
+          static_cast<const bf*>(q), static_cast<bf*>(qs), n8, scale);
+      launch_dkv_bf16<true>(k, v, lse, delta, dk, dv, B, S, H, valid_len, scale, qmap, dmap,
+                            qsmap, st);
+    } else {
+      launch_dkv_bf16<false>(k, v, lse, delta, dk, dv, B, S, H, valid_len, scale, qmap, dmap,
+                             qsmap, st);
+    }
   } else {
     launch_dkdv_f32(q, k, v, dout, lse, delta, dk, dv, B, S, H, valid_len, scale, st);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 dkv kernel's dynamic shared memory in bytes, without (qs = 0) or
+// with (qs = 1) its q * scale tiles. Launches nothing.
+extern "C" int owlvit_pk_dkv_smem_bytes(int qs) {
+  return qs ? dkv_smem_bytes<true>() : dkv_smem_bytes<false>();
 }

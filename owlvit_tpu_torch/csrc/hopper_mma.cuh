@@ -59,6 +59,13 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// One arrival on `bar` once every cp.async this thread issued before it has
+// landed; the arrival counts against the barrier's expected count (noinc).
+__device__ __forceinline__ void cp_async_mbar_arrive_noinc(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
 // mbarrier at `bar` in shared memory, expecting `count` arrivals a phase
 // (one thread initialises it, then fence_mbarrier_init and a block barrier
 // publish it)
@@ -182,6 +189,20 @@ __device__ __forceinline__ void wgmma_m64n64k16_bt(float d[32], const uint32_t a
       ", {%32,%33,%34,%35}, %36, p, 1, 1, 1;\n}\n"
       : OWLVIT_WGMMA_D32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(1));
+}
+
+// d[64x64] (+)= a[64x16] . b[16x64] for the warpgroup, bf16 in, fp32
+// accumulators: a from registers (the mma.sync A fragment of this warp's 16
+// rows), b K-major in shared memory (stored [n][k]); accumulate = 0
+// overwrites d.
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float d[32], const uint32_t a[4], uint64_t b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " OWLVIT_WGMMA_D32_LIST
+      ", {%32,%33,%34,%35}, %36, p, 1, 1, 0;\n}\n"
+      : OWLVIT_WGMMA_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
 // d[64x64] (+)= a[64x16] . b[16x64] for the warpgroup, bf16 in, fp32

@@ -64,7 +64,9 @@ class OwlViTConfig:
     # version on any device.
     attention_impl: str = "auto"
     remat: bool = False  # recompute the trained encoder blocks in the backward
-    quant_backbone: bool = False  # not ported
+    # int8 frozen prefix: not ported; True (or OWLVIT_QUANT_BACKBONE=1)
+    # raises ValueError where the JAX package reads it (vit.forward_prefix)
+    quant_backbone: bool = False
     # Only the last k vision layers may take gradients; None = no split.
     trainable_last_k: "int | None" = None
     # Fixed-shift softmax (C = 20) in the non-fp32 attention kernel, for

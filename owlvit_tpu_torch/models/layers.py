@@ -170,8 +170,7 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor, *, impl: str = "auto",
                 static_max: Optional[float] = None,
-                bias: Optional[torch.Tensor] = None,
-                bwd_hint: Optional[str] = None) -> torch.Tensor:
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         """impl "xla": the plain version on any device, under PyTorch's own
         autograd; otherwise the kernels (CUDA kernels on CUDA tensors, plain
         versions on CPU). bias: an additive fp32 [B, 1|H, S, S] on the
@@ -183,9 +182,9 @@ class Attention(nn.Module):
         `hybrid_supported`, else the transposed `flash_attention`; a call it
         does not record takes `pk_fwd`. The fixed shift (static_max) is for
         forward-only calls and raises on a recorded one, as the JAX package
-        keeps it out of every grad graph. bwd_hint: the packed backward's
-        mode ("fused" or "both", `pk_bwd_mode`; `encoder` sets it). All S
-        tokens are real: the token axis is never padded."""
+        keeps it out of every grad graph. The packed backward's mode is
+        `pk_bwd_mode`'s. All S tokens are real: the token axis is never
+        padded."""
         if self.tp_group is not None:
             x = copy_to_model(x, self.tp_group)
         q, k, v = self.q(x), self.k(x), self.v(x)
@@ -203,8 +202,7 @@ class Attention(nn.Module):
             o, _ = pk_fwd_plain(q, k, v, scale=scale, num_heads=self.num_heads,
                                 static_max=static_max)
         elif recorded and packed_supported(H, D // H, D):
-            o = flash_attention_packed(q, k, v, scale=scale, num_heads=H,
-                                       bwd_hint=bwd_hint)
+            o = flash_attention_packed(q, k, v, scale=scale, num_heads=H)
         elif recorded and hybrid_supported(H, D // H, D):
             o = flash_attention_hybrid(q, k, v, scale=scale, num_heads=H)
         elif recorded:
@@ -269,10 +267,8 @@ class EncoderBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, *, impl: str = "auto",
                 static_max: Optional[float] = None,
-                bias: Optional[torch.Tensor] = None,
-                bwd_hint: Optional[str] = None) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x), impl=impl, static_max=static_max,
-                          bias=bias, bwd_hint=bwd_hint)
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = x + self.attn(self.ln1(x), impl=impl, static_max=static_max, bias=bias)
         return x + self.mlp(self.ln2(x))
 
 
@@ -284,11 +280,9 @@ def fused_ln_enabled() -> bool:
 
 def _fused_block(block: EncoderBlock, res: torch.Tensor, br: torch.Tensor, *,
                  impl: str, static_max: Optional[float]):
-    """One block on the pending (res, branch) pair -> the next pair. Its
-    attention's backward is the split pair whatever the depth, as the JAX
-    package's fused branch hints "both"."""
+    """One block on the pending (res, branch) pair -> the next pair."""
     xi, y1 = add_ln(res, br, block.ln1)
-    a = block.attn(y1, impl=impl, static_max=static_max, bwd_hint="both")
+    a = block.attn(y1, impl=impl, static_max=static_max)
     res, y2 = add_ln(xi, a, block.ln2)
     return res, block.mlp(y2)
 
@@ -303,10 +297,11 @@ def encoder(blocks, x: torch.Tensor, *, impl: str = "auto",
     an add and a LayerNorm: the JAX package's fused branch, the same
     function up to summation order.
 
-    The packed attention backward's hint, as the JAX package's `encoder`
-    passes it: "fused" for stacks of 2 layers or fewer (which it unrolls),
-    "both" (the split pair) for longer ones (which it scans) and on the
-    fused add+LayerNorm branch at any depth.
+    Every recorded layer's attention takes the backward `pk_bwd_mode`
+    resolves, the split pair unless OWLVIT_PACKED_BWD says otherwise, at any
+    depth and on either branch: the JAX package's depth hint decided between
+    two TPU kernels that both run in a fixed order, while here only the pair
+    gives the same gradients on every run.
 
     remat, when autograd records the stack: each block runs under
     torch.utils.checkpoint (non-reentrant), which keeps only its input and
@@ -327,8 +322,6 @@ def encoder(blocks, x: torch.Tensor, *, impl: str = "auto",
             res, br = run(functools.partial(_fused_block, block, impl=impl,
                                             static_max=static_max), res, br)
         return res + br
-    hint = "fused" if len(blocks) <= 2 else "both"
     for block in blocks:
-        x = run(functools.partial(block, impl=impl, static_max=static_max,
-                                  bwd_hint=hint), x)
+        x = run(functools.partial(block, impl=impl, static_max=static_max), x)
     return x

@@ -100,6 +100,7 @@ def image_embedder(params: OwlViT, cfg: OwlViTConfig, pixel_values):
         dtype=DTYPES[cfg.dtype], attention_impl=cfg.attention_impl,
         trainable_last_k=cfg.trainable_last_k,
         static_softmax=cfg.static_softmax, remat=cfg.remat,
+        quant_backbone=cfg.quant_backbone,
     )
     return _merge_feats(params, cfg, last_hidden)
 
@@ -169,7 +170,7 @@ def embed_prefix(params: OwlViT, cfg: OwlViTConfig, pixel_values):
         params.vision, cfg.vision, pixel_values, dtype=DTYPES[cfg.dtype],
         attention_impl=cfg.attention_impl,
         trainable_last_k=cfg.trainable_last_k,
-        static_softmax=cfg.static_softmax)
+        static_softmax=cfg.static_softmax, quant_backbone=cfg.quant_backbone)
 
 
 def forward_train_from_prefix(params: OwlViT, cfg: OwlViTConfig, acts):

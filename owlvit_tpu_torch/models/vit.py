@@ -10,6 +10,7 @@ so every token is real and the encoder passes no key mask.
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -65,12 +66,32 @@ def _embed_tokens(params: ViT, cfg: VisionConfig, pixel_values, dtype):
     return params.pre_ln(x)
 
 
+def _refuse_unported_switches(quant_backbone: bool = False) -> None:
+    """The JAX package's frozen prefix reads OWLVIT_FAST_SOFTMAX=1 (its
+    flash kernels' softmax in the input dtype) and OWLVIT_QUANT_BACKBONE=1
+    or OwlViTConfig.quant_backbone (int8 frozen layers). Each changes the
+    function computed; the port runs neither, so it refuses them rather
+    than compute the bf16 function under their name."""
+    if os.environ.get("OWLVIT_FAST_SOFTMAX", "0") == "1":
+        raise ValueError("OWLVIT_FAST_SOFTMAX=1 (the frozen prefix's input-dtype softmax): "
+                         "the port does not run it; unset it")
+    if quant_backbone or os.environ.get("OWLVIT_QUANT_BACKBONE") == "1":
+        switch = ("OwlViTConfig.quant_backbone" if quant_backbone
+                  else "OWLVIT_QUANT_BACKBONE=1")
+        raise ValueError(f"{switch} (the int8 frozen prefix): the port does not run it; "
+                         f"turn it off")
+
+
 def forward_prefix(params: ViT, cfg: VisionConfig, pixel_values, *,
                    dtype=torch.float32, attention_impl: str = "auto",
-                   trainable_last_k: int, static_softmax: bool = False):
+                   trainable_last_k: int, static_softmax: bool = False,
+                   quant_backbone: bool = False):
     """Embeddings + the frozen layers[0 : L-k], under no_grad (the JAX
     package's stop_gradient). The fixed-shift softmax is allowed here only:
-    these layers never take a gradient."""
+    these layers never take a gradient. Where the JAX package reads its
+    fast-softmax and int8 switches, the port refuses them
+    (`_refuse_unported_switches`)."""
+    _refuse_unported_switches(quant_backbone)
     with torch.no_grad():
         x = _embed_tokens(params, cfg, pixel_values, dtype)
         return encoder(
@@ -94,7 +115,8 @@ def forward_tail(params: ViT, cfg: VisionConfig, acts, *,
 def forward(params: ViT, cfg: VisionConfig, pixel_values, *,
             dtype=torch.float32, attention_impl: str = "auto",
             trainable_last_k: Optional[int] = None,
-            static_softmax: bool = False, remat: bool = False):
+            static_softmax: bool = False, remat: bool = False,
+            quant_backbone: bool = False):
     """[B, H, W, 3] -> last_hidden_state [B, 1+P, D] (before post-LN).
 
     trainable_last_k: if set, the first L-k layers run as a frozen prefix
@@ -106,6 +128,6 @@ def forward(params: ViT, cfg: VisionConfig, pixel_values, *,
         return encoder(params.layers, x, impl=attention_impl, remat=remat)
     acts = forward_prefix(params, cfg, pixel_values, dtype=dtype,
                           attention_impl=attention_impl, trainable_last_k=k,
-                          static_softmax=static_softmax)
+                          static_softmax=static_softmax, quant_backbone=quant_backbone)
     return forward_tail(params, cfg, acts, attention_impl=attention_impl,
                         trainable_last_k=k, remat=remat)

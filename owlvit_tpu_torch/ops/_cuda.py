@@ -45,8 +45,11 @@ _SIGNATURES = {
     "owlvit_pk_dq": [_P] * 9 + [_I] * 5 + [_F, _I, _P],
     # the bf16 dq kernel's dynamic shared memory in bytes (no launch, no stream)
     "owlvit_pk_dq_smem_bytes": [],
-    # q k v lse do delta dk dv | B S H hd valid_len | scale dtype stream
-    "owlvit_pk_dkv": [_P] * 8 + [_I] * 5 + [_F, _I, _P],
+    # q k v lse do delta dk dv qs | B S H hd valid_len | scale dtype stream
+    "owlvit_pk_dkv": [_P] * 9 + [_I] * 5 + [_F, _I, _P],
+    # with q * scale tiles (0 or 1) -> the bf16 dkv kernel's dynamic shared
+    # memory in bytes (no launch, no stream)
+    "owlvit_pk_dkv_smem_bytes": [_I],
     # x h scale bias r y | N D | eps dtype stream
     "owlvit_add_ln_fwd": [_P] * 6 + [_I] * 2 + [_F, _I, _P],
     # r dy dr scale g part_scale part_bias dscale dbias | N D blocks | eps dtype stream

@@ -16,9 +16,10 @@ goes to the plain version, a CUDA tensor to the CUDA kernel in
 wrapper raises. `pk_fwd` is the custom op `owlvit::pk_fwd` with a fake
 implementation, so that torch.export traces it (train/export.py). The
 kernels are built and bound by ops/_cuda.py at first use, so importing this
-module needs neither nvcc nor a card. The fused backward's dq may differ by
-one bf16 ulp from run to run (its key tiles add dq partials in L2 in no fixed
-order); the pair's dq is the same on every run.
+module needs neither nvcc nor a card. The pair is the default backward: its
+dq, dk and dv are the same on every run. The fused backward
+(OWLVIT_PACKED_BWD=fused) may give a dq that differs by one bf16 ulp from
+run to run (its key tiles add dq partials in L2 in no fixed order).
 
 The transposed functions (`flash_attention` over [B, S, H, hd], the
 counterpart of `_flash3` with `_fwd_kernel`, `_dq_kernel` and `_dkv_kernel`,
@@ -52,12 +53,20 @@ STATIC_MAX_DEFAULT = 20.0
 
 
 def resolve_static_max(dtype: torch.dtype, static_softmax: bool) -> Optional[float]:
-    """C for the fixed-shift softmax, or None for the per-row max: C = 20 for
-    non-fp32 compute when static_softmax is set, as `_static_max_env`
-    resolves it by default (an argument here, not an environment variable)."""
-    if static_softmax and dtype != torch.float32:
-        return STATIC_MAX_DEFAULT
-    return None
+    """C for the fixed-shift softmax, or None for the per-row max, resolved
+    as the JAX package's `_static_max_env(dtype) if static_softmax else
+    None`: OWLVIT_STATIC_MAX (read at call time) set to `off` or `dynamic`
+    (in any case) gives the per-row max, set to a number gives that C (fp32
+    included); unset, C = 20 for non-fp32 compute. Nothing of this applies
+    without static_softmax."""
+    if not static_softmax:
+        return None
+    env = os.environ.get("OWLVIT_STATIC_MAX", "")
+    if env.lower() in ("off", "dynamic"):
+        return None
+    if env:
+        return float(env)
+    return STATIC_MAX_DEFAULT if dtype != torch.float32 else None
 
 
 def pk_fwd_plain(q, k, v, *, scale: float, num_heads: int,
@@ -281,7 +290,7 @@ def pk_bwd(q, k, v, o, lse, do, *, scale: float, num_heads: int,
     no scalar atomics), in an order that changes from run to run: dq may
     differ in its last fp32 bits before the cast, so by one bf16 ulp after
     it; dk and dv are the same from run to run. Mode "both"
-    (`pk_bwd_split`) gives the same dq on every run."""
+    (`pk_bwd_split`, the default) gives the same dq on every run."""
     if q.device.type == "cpu":
         return pk_bwd_plain(q, k, v, o, lse, do, scale=scale,
                             num_heads=num_heads, valid_len=valid_len)
@@ -314,12 +323,13 @@ def scale_is_exact_in_bf16(scale: float) -> bool:
     return 0.0 < scale <= 1.0 and math.frexp(scale)[0] == 0.5
 
 
-def _k_scaled_scratch(k, scale: float):
-    """The bf16 dq kernel's scratch for k * scale, rounded once by a launch
-    before it (the TPU kernel's rounding point), or None where that
-    rounding is exact: the kernel then reads k and scales its fp32 scores
-    and dq instead, which gives the same bits."""
-    return None if scale_is_exact_in_bf16(scale) else torch.empty_like(k)
+def _scaled_scratch(x, scale: float):
+    """A bf16 kernel's scratch for x * scale (k for the dq kernel, q for the
+    dkv kernel), rounded once by a launch before it (the TPU kernel's
+    rounding point), or None where that rounding is exact: the kernel then
+    reads x and scales its fp32 scores and its output instead, which gives
+    the same bits."""
+    return None if scale_is_exact_in_bf16(scale) else torch.empty_like(x)
 
 
 def pk_dq(q, k, v, o, lse, do, *, scale: float, num_heads: int,
@@ -340,7 +350,7 @@ def pk_dq(q, k, v, o, lse, do, *, scale: float, num_heads: int,
     valid = _valid(valid_len, S)
     delta = torch.empty((B, num_heads, S), dtype=torch.float32, device=q.device)
     dq = torch.empty_like(q)
-    ks = _k_scaled_scratch(k, scale) if q.dtype == torch.bfloat16 else None
+    ks = _scaled_scratch(k, scale) if q.dtype == torch.bfloat16 else None
     launch("owlvit_pk_dq", q.device,
            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
            do.data_ptr(), delta.data_ptr(), dq.data_ptr(),
@@ -356,9 +366,10 @@ pk_dq.launches = pk_dq.transposed_launches = 0
 def pk_dkv(q, k, v, lse, do, delta, *, scale: float, num_heads: int,
            valid_len: Optional[int] = None):
     """The split pair's second half, dk and dv by key tile -> (dk, dv) [B,
-    S, D] in the input dtype, from `pk_dq`'s delta. CPU tensors run
-    `pk_dkv_plain`; CUDA tensors run the kernel (the fused kernel with its dq
-    product compiled out), and `pk_dkv.launches` counts each launch
+    S, D] in the input dtype, from `pk_dq`'s delta. Each key tile's dk and
+    dv are summed in registers over every query in a fixed order: the same
+    inputs give the same dk and dv. CPU tensors run `pk_dkv_plain`; CUDA
+    tensors run the kernel, and `pk_dkv.launches` counts each launch
     (`pk_dkv.transposed_launches` at num_heads=1)."""
     if q.device.type == "cpu":
         return pk_dkv_plain(q, k, v, lse, do, delta, scale=scale, num_heads=num_heads,
@@ -370,9 +381,11 @@ def pk_dkv(q, k, v, lse, do, delta, *, scale: float, num_heads: int,
     _check_rows("pk_dkv: delta", delta, B, num_heads, S, q.device)
     valid = _valid(valid_len, S)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    qs = _scaled_scratch(q, scale) if q.dtype == torch.bfloat16 else None
     launch("owlvit_pk_dkv", q.device,
            q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(), do.data_ptr(),
-           delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, num_heads, HEAD_DIM,
+           delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+           None if qs is None else qs.data_ptr(), B, S, num_heads, HEAD_DIM,
            valid, float(scale), DTYPE_CODE[q.dtype])
     _count(pk_dkv, num_heads)
     return dk, dv
@@ -384,8 +397,8 @@ pk_dkv.launches = pk_dkv.transposed_launches = 0
 def pk_bwd_split(q, k, v, o, lse, do, *, scale: float, num_heads: int,
                  valid_len: Optional[int] = None):
     """Packed attention backward, mode "both" (the JAX package's split
-    pair): `pk_dq` then `pk_dkv` -> (dq, dk, dv), the function `pk_bwd`
-    computes, with a dq that is the same from run to run."""
+    pair; the default): `pk_dq` then `pk_dkv` -> (dq, dk, dv), the function
+    `pk_bwd` computes, the same from run to run."""
     args = dict(scale=scale, num_heads=num_heads, valid_len=valid_len)
     dq, delta = pk_dq(q, k, v, o, lse, do, **args)
     return (dq, *pk_dkv(q, k, v, lse, do, delta, **args))
@@ -395,49 +408,49 @@ def pk_bwd_split(q, k, v, o, lse, do, *, scale: float, num_heads: int,
 BWD_MODES = ("fused", "both")
 
 
-def pk_bwd_mode(hint: Optional[str] = None) -> str:
-    """Which packed backward runs, resolved as the JAX package's
-    `_pk_bwd_mode`: OWLVIT_PACKED_BWD (read at call time) wins when set,
-    then the caller's hint, then "fused". The JAX package's diagnostic
-    halves "dq" and "dkv" isolate a TPU fault and are not ported: they
-    raise, as any other value does."""
-    mode = os.environ.get("OWLVIT_PACKED_BWD") or hint or "fused"
+def pk_bwd_mode() -> str:
+    """Which packed backward runs: OWLVIT_PACKED_BWD (read at call time)
+    when set, as the JAX package's `_pk_bwd_mode` lets it win, else "both",
+    the split pair, whose dq, dk and dv are the same on every run (the JAX
+    package's grid runs in order, so its dq is too; the fused kernel's dq
+    reduction is what would break that here). "fused" stays the A/B
+    yardstick. The JAX package's diagnostic halves "dq" and "dkv" isolate a
+    TPU fault and are not ported: they raise, as any other value does."""
+    mode = os.environ.get("OWLVIT_PACKED_BWD") or "both"
     if mode not in BWD_MODES:
-        raise ValueError(f"packed backward mode {mode!r} (OWLVIT_PACKED_BWD or the "
-                         f"caller's hint): the port runs {BWD_MODES}")
+        raise ValueError(f"packed backward mode {mode!r} (OWLVIT_PACKED_BWD): the port "
+                         f"runs {BWD_MODES}")
     return mode
 
 
 class _FlashAttentionPacked(torch.autograd.Function):
     """o = attention(q, k, v) with the per-row-max forward (`pk_fwd`) and
-    the backward from the saved (q, k, v, o, lse), `pk_bwd` or
-    `pk_bwd_split` as `pk_bwd_mode(bwd_hint)` resolves at backward time: the
-    counterpart of the JAX package's `_flash_packed` custom_vjp."""
+    the backward from the saved (q, k, v, o, lse), `pk_bwd_split` or
+    `pk_bwd` as `pk_bwd_mode()` resolves at backward time: the counterpart
+    of the JAX package's `_flash_packed` custom_vjp."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, num_heads, bwd_hint):
+    def forward(ctx, q, k, v, scale, num_heads):
         o, lse = pk_fwd(q, k, v, scale=scale, num_heads=num_heads)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.scale, ctx.num_heads, ctx.bwd_hint = scale, num_heads, bwd_hint
+        ctx.scale, ctx.num_heads = scale, num_heads
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        bwd = pk_bwd if pk_bwd_mode(ctx.bwd_hint) == "fused" else pk_bwd_split
+        bwd = pk_bwd if pk_bwd_mode() == "fused" else pk_bwd_split
         dq, dk, dv = bwd(q, k, v, o, lse, do.contiguous(), scale=ctx.scale,
                          num_heads=ctx.num_heads)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None
 
 
-def flash_attention_packed(q, k, v, *, scale: float, num_heads: int,
-                           bwd_hint: Optional[str] = None):
+def flash_attention_packed(q, k, v, *, scale: float, num_heads: int):
     """Differentiable packed attention over all S tokens ([B, S, D] in and
-    out): the kernels on CUDA tensors, the plain versions on CPU tensors.
-    bwd_hint: the caller's backward mode ("fused" or "both"), which
-    OWLVIT_PACKED_BWD overrides (`pk_bwd_mode`). The fixed-shift softmax has
+    out): the kernels on CUDA tensors, the plain versions on CPU tensors;
+    the backward as `pk_bwd_mode` resolves it. The fixed-shift softmax has
     no place here: it is for forward-only calls."""
-    return _FlashAttentionPacked.apply(q, k, v, float(scale), int(num_heads), bwd_hint)
+    return _FlashAttentionPacked.apply(q, k, v, float(scale), int(num_heads))
 
 
 # heads per group in the JAX package's packed kernels: GROUP_LANES // hd

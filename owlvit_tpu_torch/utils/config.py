@@ -151,12 +151,10 @@ class ModelConfig:
     dtype: str = "float32"  # or "bfloat16"
     attention_impl: str = "auto"
     remat: bool = False
-    # (r5) int8 frozen backbone was DEMOTED out of the production config:
-    # +6.4% measured but it fails the r3 drift gate — detections drift 3.1x
-    # the bf16 noise floor and the 3-seed training A/B could not resolve the
-    # mAP effect (BENCH.md). It remains a tools-only experiment via
-    # OWLVIT_QUANT_BACKBONE=1 and OwlViTConfig.quant_backbone
-    # (tools/tpu_one_run.py quantdrift=1 is the agreement probe).
+    # The int8 frozen backbone is not a ModelConfig field (the JAX package
+    # demoted it to an experiment: detections drifted 3.1x the bf16 noise
+    # floor). The port does not run it: OWLVIT_QUANT_BACKBONE=1 and
+    # OwlViTConfig.quant_backbone raise in vit.forward_prefix.
     trainable_last_k: int = 1
     prompts_per_class: int = 3
     clip_vocab: Optional[str] = None  # vocab.json path (real CLIP BPE)

@@ -64,3 +64,25 @@ def test_matcher_entry_points_are_bound(name, params):
     assert len(_cuda._SIGNATURES[name]) == params
     assert _cuda._SIGNATURES[name][-1] is ctypes.c_void_p
     assert "stream" in PROTOTYPES[name][1][-1]
+
+
+@pytest.mark.parametrize("name,params,pointer", [
+    # q k v lse do delta dk dv qs | B S H hd valid_len | scale dtype stream
+    ("owlvit_pk_dkv", 17, "qs"),
+    # q k v o lse do delta dq ks | B S H hd valid_len | scale dtype stream
+    ("owlvit_pk_dq", 17, "ks")])
+def test_pair_scratch_is_the_ninth_pointer(name, params, pointer):
+    """The split pair's entry points take their x * scale scratch (null
+    where the scale is exact) as the ninth parameter, where the wrappers
+    pass it, bound as a pointer."""
+    assert len(PROTOTYPES[name][1]) == len(_cuda._SIGNATURES[name]) == params
+    assert PROTOTYPES[name][1][8].split("*")[-1].strip() == pointer
+    assert _cuda._SIGNATURES[name][8] is ctypes.c_void_p
+
+
+def test_dkv_smem_query_is_bound():
+    """owlvit_pk_dkv_smem_bytes takes one int (with or without the q *
+    scale tiles) and launches nothing (no stream)."""
+    assert PROTOTYPES["owlvit_pk_dkv_smem_bytes"] == ("int", ["int qs"])
+    assert _cuda._SIGNATURES["owlvit_pk_dkv_smem_bytes"] == [ctypes.c_int]
+

@@ -3,10 +3,11 @@
 modes "fused" and "both", against the port's `pk_bwd` and `pk_bwd_split`),
 the keys past valid_len that the dq kernel's copies no longer zero (large
 values there leave dq as zeros do), the autograd Function on CPU against
-PyTorch's autograd through the plain forward, and the routing: the backward mode (`pk_bwd_mode` against
-`_pk_bwd_mode`), the hint `layers.encoder` passes (against what the JAX
-package's `encoder` passes), the transposed and hybrid backward's split pair,
-and the wrappers' launch counters.
+PyTorch's autograd through the plain forward, and the routing: the backward
+mode (`pk_bwd_mode` against `_pk_bwd_mode` where OWLVIT_PACKED_BWD is set,
+the split pair where it is not), the pair on every layer of a recorded
+stack, the transposed and hybrid backward's split pair, and the wrappers'
+launch counters.
 
 Tolerances. fp32: atol 2e-5 on gradients of magnitude about 1 (summation
 order, and p taken as exp(s - lse) here but recomputed from the row max and
@@ -115,13 +116,14 @@ def test_pair_dq_ignores_the_keys_past_valid_len(dtype, fill, monkeypatch):
     (0.1, False), (48**-0.5, False), (2.0, False), (0.0, False), (-0.125, False),
 ])
 def test_scale_exact_in_bf16(scale, exact):
-    """The dq kernel reads k and scales in fp32 only where bf16(k * scale)
-    is k * scale (a power of two in (0, 1]); elsewhere the wrapper hands it
-    the k * scale scratch. The premise, on every finite bf16 value of
-    magnitude 2^-100 .. 2^100: the rounding leaves such products alone."""
+    """The dq kernel reads k, and the dkv kernel q, and they scale in fp32
+    only where bf16(x * scale) is x * scale (a power of two in (0, 1]);
+    elsewhere the wrapper hands the kernel the x * scale scratch. The
+    premise, on every finite bf16 value of magnitude 2^-100 .. 2^100: the
+    rounding leaves such products alone."""
     assert tfa.scale_is_exact_in_bf16(scale) is exact
     k = torch.zeros((1, 8, HD), dtype=torch.bfloat16)
-    assert (tfa._k_scaled_scratch(k, scale) is None) is exact
+    assert (tfa._scaled_scratch(k, scale) is None) is exact
     if exact:
         bits = torch.arange(0, 2**16, dtype=torch.int32).to(torch.int16)
         x = bits.view(torch.bfloat16).float()
@@ -131,7 +133,7 @@ def test_scale_exact_in_bf16(scale, exact):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_autograd_function_matches_plain_autograd(dtype):
-    """flash_attention_packed's backward (pk_bwd on CPU) against PyTorch's
+    """flash_attention_packed's backward (the pair on CPU) against PyTorch's
     autograd through pk_fwd_plain. fp32 atol 1e-5; bf16 max-rel 2e-2 (the
     two backward graphs round at different points)."""
     q, k, v, do = (torch.from_numpy(x).to(TDT[dtype]) for x in _inputs(1))
@@ -221,95 +223,76 @@ def test_split_pair_is_the_fused_function(dtype, valid_len):
 @pytest.mark.parametrize("env", [None, "fused", "both"])
 @pytest.mark.parametrize("hint", [None, "fused", "both"])
 def test_bwd_mode_matches_jax(env, hint, monkeypatch):
-    """OWLVIT_PACKED_BWD wins when set, then the caller's hint, then
-    "fused", as `_pk_bwd_mode` resolves it."""
+    """OWLVIT_PACKED_BWD wins when set, as `_pk_bwd_mode` resolves it
+    whatever its caller's hint (`hint`); unset, the port gives "both", the
+    split pair whose gradients are the same on every run, where the JAX
+    package falls to the hint (its grid runs in order, so either of its
+    kernels is reproducible)."""
     if env is None:
         monkeypatch.delenv("OWLVIT_PACKED_BWD", raising=False)
+        assert tfa.pk_bwd_mode() == "both"
     else:
         monkeypatch.setenv("OWLVIT_PACKED_BWD", env)
-    assert tfa.pk_bwd_mode(hint) == jfa._pk_bwd_mode(hint)
+        assert tfa.pk_bwd_mode() == jfa._pk_bwd_mode(hint) == env
 
 
-@pytest.mark.parametrize("env, hint", [("dq", None), ("dkv", "both"), (None, "other")])
+@pytest.mark.parametrize("env, hint", [("dq", None), ("dkv", "both"), ("other", None)])
 def test_bwd_mode_refuses_the_diagnostic_halves(env, hint, monkeypatch):
-    """JAX's diagnostic modes "dq" and "dkv" (and any other value) raise:
-    the port runs "fused" and "both" only."""
-    if env is None:
-        monkeypatch.delenv("OWLVIT_PACKED_BWD", raising=False)
-    else:
-        monkeypatch.setenv("OWLVIT_PACKED_BWD", env)
+    """JAX's diagnostic modes "dq" and "dkv" (and any other value) raise,
+    whatever the JAX caller's hint would have been: the port runs "fused"
+    and "both" only."""
+    monkeypatch.setenv("OWLVIT_PACKED_BWD", env)
+    assert jfa._pk_bwd_mode(hint) == env
     with pytest.raises(ValueError, match="packed backward mode"):
-        tfa.pk_bwd_mode(hint)
+        tfa.pk_bwd_mode()
 
 
-def _jax_hints(n_layers, fused_ln, monkeypatch):
-    """The bwd_hint values the JAX package's layers.encoder passes to its
-    attention for a stack of n_layers on the flash path."""
-    from owlvit_tpu.models import layers as jlayers
-    from owlvit_tpu.ops import fused_ln as jfused_ln
-
-    seen = set()
-
-    def attention(p, x, num_heads, **kw):
-        seen.add(kw.get("bwd_hint"))
-        return x
-
-    monkeypatch.setattr(jlayers, "attention", attention)
-    monkeypatch.setattr(jfused_ln, "add_ln", lambda x, h, p, eps: (x + h, x + h))
-    monkeypatch.setenv("OWLVIT_FUSED_LN", "1" if fused_ln else "0")
-    D = H * HD
-    zeros = lambda *shape: jnp.zeros((n_layers, *shape), jnp.float32)  # noqa: E731
-    ln = {"scale": zeros(D), "bias": zeros(D)}
-    dense = lambda i, o: {"kernel": zeros(i, o), "bias": zeros(o)}  # noqa: E731
-    stacked = {"ln1": ln, "ln2": ln, "attn": {n: dense(D, D) for n in ("q", "k", "v", "out")},
-               "mlp": {"fc1": dense(D, 2 * D), "fc2": dense(2 * D, D)}}
-    jlayers.encoder(stacked, jnp.zeros((1, 4, D)), H, 1e-5, impl="flash")
-    return seen
+def _record_kernels(monkeypatch):
+    """Count the backward wrappers' calls as (name, num_heads), in order."""
+    calls = []
+    for name in ("pk_bwd", "pk_dq", "pk_dkv"):
+        real = getattr(tfa, name)
+        monkeypatch.setattr(tfa, name, lambda *a, _n=name, _f=real, **kw:
+                            calls.append((_n, kw["num_heads"])) or _f(*a, **kw))
+    return calls
 
 
 @pytest.mark.parametrize("fused_ln", [False, True])
 @pytest.mark.parametrize("n_layers", [1, 2, 3, 12])
 def test_encoder_hint_matches_jax(n_layers, fused_ln, monkeypatch):
-    """layers.encoder's backward hint: "fused" for stacks of 2 layers or
-    fewer, "both" for longer ones and on the fused add+LayerNorm branch at
-    any depth, as the JAX package's encoder passes it; each recorded
-    attention call carries it to flash_attention_packed."""
-    want = _jax_hints(n_layers, fused_ln, monkeypatch)
-    seen = []
-    monkeypatch.setattr(layers, "flash_attention_packed", lambda *a, bwd_hint=None, **kw:
-                        seen.append(bwd_hint) or tfa.flash_attention_packed(
-                            *a, bwd_hint=bwd_hint, **kw))
+    """Without OWLVIT_PACKED_BWD, a recorded stack of any depth, on either
+    branch (OWLVIT_FUSED_LN), runs each layer's attention backward as the
+    split pair: pk_dq and pk_dkv once per layer, pk_bwd never. The JAX
+    package's encoder hinted "fused" for stacks of 2 layers or fewer; the
+    port takes no hint."""
+    monkeypatch.delenv("OWLVIT_PACKED_BWD", raising=False)
+    monkeypatch.setenv("OWLVIT_FUSED_LN", "1" if fused_ln else "0")
+    calls = _record_kernels(monkeypatch)
     D = H * HD
     blocks = torch.nn.ModuleList(layers.EncoderBlock(D, 2 * D, H, 1e-5,
                                                      generator=torch.Generator().manual_seed(i))
                                  for i in range(n_layers))
     x = torch.zeros(1, 4, D, requires_grad=True)
     layers.encoder(blocks, x).sum().backward()
-    assert len(seen) == n_layers and set(seen) == want
-    assert want == {"fused" if n_layers <= 2 and not fused_ln else "both"}
+    assert calls == [("pk_dq", H), ("pk_dkv", H)] * n_layers
 
 
 @pytest.mark.parametrize("env", [None, "fused", "both"])
 @pytest.mark.parametrize("fn", ["packed", "hybrid", "transposed"])
 def test_backward_takes_the_mode(fn, env, monkeypatch):
-    """The packed Function's backward runs `pk_bwd` or the pair as
-    `pk_bwd_mode(bwd_hint)` resolves at backward time (the hint here
-    "both"); the transposed and hybrid backward always run the pair at one
-    head, as the JAX package's `_bwd` always runs `_dq_kernel` and
-    `_dkv_kernel`."""
+    """The packed Function's backward runs the pair, or `pk_bwd` under
+    OWLVIT_PACKED_BWD=fused, as `pk_bwd_mode()` resolves at backward time;
+    the transposed and hybrid backward always run the pair at one head, as
+    the JAX package's `_bwd` always runs `_dq_kernel` and `_dkv_kernel`."""
     if env is None:
         monkeypatch.delenv("OWLVIT_PACKED_BWD", raising=False)
     else:
         monkeypatch.setenv("OWLVIT_PACKED_BWD", env)
-    calls = []
-    for name in ("pk_bwd", "pk_dq", "pk_dkv"):
-        real = getattr(tfa, name)
-        monkeypatch.setattr(tfa, name, lambda *a, _n=name, _f=real, **kw:
-                            calls.append((_n, kw["num_heads"])) or _f(*a, **kw))
+    calls = _record_kernels(monkeypatch)
     q, k, v, do = (torch.from_numpy(x) for x in _inputs(5))
     leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
     if fn == "packed":
-        o = tfa.flash_attention_packed(*leaves, scale=SCALE, num_heads=H, bwd_hint="both")
+        o = tfa.flash_attention_packed(*leaves, scale=SCALE, num_heads=H)
     elif fn == "hybrid":
         o = tfa.flash_attention_hybrid(*leaves, scale=SCALE, num_heads=H)
     else:

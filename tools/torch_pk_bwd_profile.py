@@ -10,20 +10,23 @@ Usage: python3 tools/torch_pk_bwd_profile.py [--out DIR] [--mode fused|both]
 Prints one JSON line per phase:
   device   the card's name and power limit (nvidia-smi).
   build    nvcc's registers and spills for the bf16 backward kernels (the
-           key-tile kernel as the fused kernel and as the pair's dkv
-           kernel, the delta kernel, the pair's dq kernel), of this tree's
-           build and then of each --baseline's.
-  shape    per shape: the fused backward and the pair in turns (fused,
-           pair, pair, fused; CUDA events over 10 calls each), each half of
-           the pair alone, the share of the fused kernel's time that its dq
-           product and reductions take, read as 1 - dkv / fused (the dkv
-           kernel is the fused kernel with them compiled out; the delta
-           kernel, the zero fill and the cast count on the fused side), the
+           fused kernel and its delta kernel, the pair's dq and dkv
+           kernels), of this tree's build and then of each --baseline's.
+  shape    per shape: the pair against its plain version on the first 4
+           sequences (max-rel of dq, dk, dv), whether two launches of
+           pk_dkv are bit-equal, the fused backward and the pair in turns
+           (fused, pair, pair, fused; CUDA events over 10 calls each), each
+           half of the pair alone, 1 - dkv / fused (the fused kernel's dq
+           share while the dkv kernel was the fused kernel with its dq
+           product compiled out; with a dkv kernel of its own, a ratio), the
            library's attention backward alone (`chip_smoke.sdpa_bwd_ms`: the
            flash backward fed with its own forward's outputs; a yardstick
            the port never calls), torch.profiler's device time per call
            of each kernel that --mode's backward launches, and the SM clock
            and power draw while `pk_dq` runs back to back (nvidia-smi).
+  dkv_builds with two or more --baseline: per shape, `pk_dkv` alone with
+           every build and this tree's in one round of turns (b1, .., tree,
+           tree, .., b1; three rounds, 20 calls each): medians and spreads.
   baseline with --baseline CSRC (a directory of kernel sources, e.g. an
            earlier commit's owlvit_tpu_torch/csrc unpacked by git archive;
            repeatable): per shape and per build, --mode's backward with
@@ -31,8 +34,9 @@ Prints one JSON line per phase:
            baseline; 10 calls each), `pk_dq` alone in three such rounds
            (100 calls each; medians and spreads) and the profiler's device
            time per call of each kernel it launches with either build, and
-           the largest |dq_tree - dq_baseline| over the shape. Mode "both"
-           needs sources with the pair's entry points.
+           the largest |dq_tree - dq_baseline| over the shape; the same for
+           `pk_dkv` alone (20 calls each, and the largest difference of dk
+           and dv). Mode "both" needs sources with the pair's entry points.
 With --out, the lines also go to DIR/pk_bwd_profile.jsonl.
 """
 
@@ -112,24 +116,31 @@ def bwd_ptxas(lib_path):
     """nvcc's lines (stack and spills, registers, any wgmma serialisation
     note) for the bf16 backward's entry functions."""
     return {name: lines for name, lines in _cuda.ptxas_report(lib_path).items()
-            if ("pk_bwd" in name or "pk_dq" in name) and "bf16" in name}
+            if ("pk_bwd" in name or "pk_dq" in name or "pk_dkv" in name) and "bf16" in name}
 
 
-class WithoutWorkspace:
-    """A build of sources from before the dq kernel's k*scale workspace (it
-    lacks owlvit_pk_dq_smem_bytes), called as this tree's wrappers call it:
-    its owlvit_pk_dq takes no ks, the ninth argument."""
+class OlderBuild:
+    """A build of older sources, called as this tree's wrappers call it. One
+    from before the dq kernel's k*scale scratch (it lacks
+    owlvit_pk_dq_smem_bytes) takes no ks, owlvit_pk_dq's ninth argument;
+    one from before the dkv kernel's q*scale scratch (it lacks
+    owlvit_pk_dkv_smem_bytes) takes no qs, owlvit_pk_dkv's ninth."""
 
     def __init__(self, lib):
         self._lib = lib
-        sig = _cuda._SIGNATURES["owlvit_pk_dq"]
-        lib.owlvit_pk_dq.argtypes = sig[:8] + sig[9:]
+        self._drop = {name: 8 for name, marker in (("owlvit_pk_dq", "owlvit_pk_dq_smem_bytes"),
+                                                   ("owlvit_pk_dkv", "owlvit_pk_dkv_smem_bytes"))
+                      if not hasattr(lib, marker)}
+        for name, i in self._drop.items():
+            sig = _cuda._SIGNATURES[name]
+            getattr(lib, name).argtypes = sig[:i] + sig[i + 1:]
 
     def __getattr__(self, name):
-        return getattr(self._lib, name)
-
-    def owlvit_pk_dq(self, *args):
-        return self._lib.owlvit_pk_dq(*args[:8], *args[9:])
+        fn = getattr(self._lib, name)
+        if name not in self._drop:
+            return fn
+        i = self._drop[name]
+        return lambda *args: fn(*args[:i], *args[i + 1:])
 
 
 def build_from(csrc):
@@ -139,8 +150,7 @@ def build_from(csrc):
     _cuda.CSRC = Path(csrc).resolve()
     try:
         path = _cuda.build()
-        lib = _cuda.bind(path)
-        return path, lib if hasattr(lib, "owlvit_pk_dq_smem_bytes") else WithoutWorkspace(lib)
+        return path, OlderBuild(_cuda.bind(path))
     finally:
         _cuda.CSRC = saved
 
@@ -213,17 +223,40 @@ def main():
         def dq_alone():
             return fa.pk_dq(q, k, v, o, lse, do, **kw)
 
+        def dkv_alone():
+            return fa.pk_dkv(q, k, v, lse, do, delta, **kw)
+
+        # the pair against its plain version on the first 4 sequences
+        part = [x[:4] for x in (q, k, v, o, lse, do)]
+        want = fa.pk_bwd_plain(*part, **kw)
+        got = (dq[:4], *(g[:4] for g in dkv_alone()))
+        vs_plain = {n: ((g.float() - w.float()).abs().max() / w.float().abs().max()).item()
+                    for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+        repeat = all(torch.equal(a, b) for a, b in zip(dkv_alone(), dkv_alone()))
+        del want, got
+
         turns = [cuda_ms(run("fused")), cuda_ms(run("both")), cuda_ms(run("both")),
                  cuda_ms(run("fused"))]
         fused_ms, pair_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
         dq_ms = cuda_ms(dq_alone)
-        dkv_ms = cuda_ms(lambda: fa.pk_dkv(q, k, v, lse, do, delta, **kw))
+        dkv_ms = cuda_ms(dkv_alone)
         lib_ms, lib_op = sdpa_bwd_ms(q, k, v, H, HD**-0.5, do)
         emit("shape", shape=[B, S, H * HD], heads=H, fused_ms=fused_ms, pair_ms=pair_ms,
              turns_ms=turns, dq_ms=dq_ms, dkv_ms=dkv_ms,
-             fused_dq_share=1 - dkv_ms / fused_ms, library_bwd_ms=lib_ms, library_bwd_op=lib_op,
+             pair_vs_plain_max_rel=vs_plain, dkv_repeat_bit_equal=repeat,
+             one_minus_dkv_over_fused=1 - dkv_ms / fused_ms, library_bwd_ms=lib_ms, library_bwd_op=lib_op,
              mode=args.mode, kernel_us_per_call=kernel_times(run(args.mode)),
              dq_clocks=sm_clocks(dq_alone))
+        if len(baselines) > 1:  # pk_dkv of every build in one round of turns
+            libs = {**baselines, "tree": None}
+
+            def dkv_with(build):
+                lib = libs[build]
+                return cuda_ms((lambda: with_library(lib, dkv_alone)) if lib else dkv_alone, 20)
+
+            turns = in_turns(dkv_with, list(libs), rounds=3)
+            emit("dkv_builds", shape=[B, S, H * HD], heads=H, order=list(libs),
+                 dkv_ms={b: summary(r) for b, r in turns.items()}, dkv_turns_ms=turns)
         for csrc, lib in baselines.items():
             def timed(fn, iters):  # build name -> ms per call of fn with that build
                 return lambda build: cuda_ms(
@@ -231,7 +264,9 @@ def main():
 
             bwd = in_turns(timed(run(args.mode), 10), ("baseline", "tree"))
             dq_turns = in_turns(timed(dq_alone, 100), ("baseline", "tree"), rounds=3)
+            dkv_turns = in_turns(timed(dkv_alone, 20), ("baseline", "tree"), rounds=3)
             dq_base = with_library(lib, dq_alone)[0]
+            dkv_base = with_library(lib, dkv_alone)
             emit("baseline", shape=[B, S, H * HD], heads=H, csrc=csrc, mode=args.mode,
                  baseline_ms=summary(bwd["baseline"])["median"],
                  tree_ms=summary(bwd["tree"])["median"], turns_ms=bwd,
@@ -240,8 +275,15 @@ def main():
                  dq_kernel_us_per_call={
                      "baseline": with_library(lib, lambda: kernel_times(dq_alone, 10)),
                      "tree": kernel_times(dq_alone, 10)},
-                 dq_max_abs_diff=(dq_alone()[0].float() - dq_base.float()).abs().max().item())
-            del dq_base
+                 dq_max_abs_diff=(dq_alone()[0].float() - dq_base.float()).abs().max().item(),
+                 dkv_baseline_ms=summary(dkv_turns["baseline"]),
+                 dkv_tree_ms=summary(dkv_turns["tree"]), dkv_turns_ms=dkv_turns,
+                 dkv_kernel_us_per_call={
+                     "baseline": with_library(lib, lambda: kernel_times(dkv_alone, 5)),
+                     "tree": kernel_times(dkv_alone, 5)},
+                 dkv_max_abs_diff=max((a.float() - b.float()).abs().max().item()
+                                      for a, b in zip(dkv_alone(), dkv_base)))
+            del dq_base, dkv_base
         del q, k, v, do, o, lse, dq, delta
         torch.cuda.empty_cache()
     if args.out:
