@@ -13,7 +13,8 @@ Phases, each printing its numbers on a line of its own:
      may carry a note that ptxas serialises its wgmma), the dq and dkv
      kernels' dynamic shared memory, and
      the bf16 add+LN backward's per width with its dynamic shared memory
-     and blocks per SM (it must not spill).
+     and blocks per SM (it must not spill), and the matcher's 16
+     instantiations (none may spill).
   3. kernel: pk_fwd against its plain PyTorch version on the card at the
      B/32, B/16 and L/14 attention shapes (batch 4, valid_len < padded S),
      bf16 and fp32, fixed-shift (C=20) and per-row-max softmax; then bf16
@@ -110,10 +111,16 @@ Phases, each printing its numbers on a line of its own:
      boxes and classes (read back here only), then jv_assign on tie-heavy
      integer costs (duplicated columns, masked rows, an image of identical
      rows) at [32, 16, 2304], [32, 64, 2304], [32, 64, 576], [4, 64, 3600]
-     and propagate_labels on chains of overlapping boxes (the walk's order
+     and on costs of -0, +0, 1 and 2 at [32, 16, 2304], both kernels on a
+     crowded scene (64 valid GT boxes in a quarter of the image against
+     the box-bias prior's boxes jittered) at [32, 64, 2304], and
+     propagate_labels on chains of overlapping boxes (the walk's order
      decides) and pairs at IoU 0.85 to a few ulps at [32, 2304] and [4,
-     3600]; times at the train step's shapes beside the host versions with
-     their device read and the bound by bytes.
+     3600]; each timed input's device time (the calls queued behind a
+     device sleep) and events time, with
+     the slowest image's Dijkstra steps or foreground turns and the
+     microseconds each; at the train step's shapes beside the host
+     versions with their device read and the bound by bytes.
  11. train_cached: the same recipe with training.cache_backbone, the device
      pool sized for config.yaml's 2500 images, 64 of them trained on: epoch
      1 (2 steps) fills the pool, epoch 2 (2 steps, no pixels) gathers.
@@ -242,6 +249,7 @@ import hashlib
 import importlib.util
 import io
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -263,6 +271,7 @@ from owlvit_tpu_torch.data.dataset import DetectionDataset  # noqa: E402
 from owlvit_tpu_torch.data.tokenizer import HashTokenizer  # noqa: E402
 from owlvit_tpu_torch.models import get_config, owlvit, vit  # noqa: E402
 from owlvit_tpu_torch.ops import _cuda, fused_ln, losses, matcher  # noqa: E402
+from owlvit_tpu_torch.ops.box_bias import compute_box_bias  # noqa: E402
 from owlvit_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from owlvit_tpu_torch.ops import nms as nms_ops  # noqa: E402
 from owlvit_tpu_torch.ops.quant import dequantize_rows  # noqa: E402
@@ -417,6 +426,34 @@ def device_ms(fn, calls=5):
     us = sum(e.time_range.end - e.time_range.start for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA)
     return us / calls / 1e3 if us else "not measured: the profiler saw no device events"
+
+
+def queued_ms(fn, names, calls=20):
+    """Device ms a launch of the kernel whose name holds one of `names`,
+    fn called `calls` times queued behind a 10 ms device sleep
+    (torch.cuda._sleep) so that they run back to back, as the train step's
+    kernels do: the mean over the launches the profile saw. Late in a long
+    process the profiler can lose some or all of them (this smoke has seen
+    0 to 18 of 20); with none, CUDA events around the queued calls, per
+    call (device timestamps that also hold the gaps between launches).
+    Called from an idle card, the matcher's profile reads tens of
+    microseconds more a launch (41 us against 2.2 for jv_assign with every
+    row masked, on an H100)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda._sleep(int(2e7))
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+    us = [e.time_range.end - e.time_range.start for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA and any(n in e.name for n in names)]
+    return sum(us) / len(us) / 1e3 if us else start.elapsed_time(end) / calls
 
 
 def max_abs(a, b):
@@ -600,10 +637,14 @@ def phase_build():
     pk_dkv_bf16 = {"ptxas": dkv, "dynamic_smem_bytes": {
         kind: _cuda.query("owlvit_pk_dkv_smem_bytes", dev0, qs)
         for qs, kind in ((0, "scale_folded"), (1, "q_scaled_tiles"))}}
-    # the matcher's two kernels (csrc/matcher.cu), one instantiation each
+    # the matcher's two kernels (csrc/matcher.cu), one instantiation each per
+    # count of columns a thread owns (1-8): none may spill (at 512 threads a
+    # kernel gets at most 128 registers)
     match_kernels = {name: lines for name, lines in report.items()
                      if "jv_assign_kernel" in name or "propagate_labels_kernel" in name}
-    check(len(match_kernels) == 2, f"ptxas report of the matcher kernels: {match_kernels}")
+    check(len(match_kernels) == 16, f"ptxas report of the matcher kernels: {match_kernels}")
+    check(all("0 bytes spill stores" in " ".join(lines) for lines in match_kernels.values()),
+          f"the matcher kernels spill registers: {match_kernels}")
     emit("build", seconds=build_s, library=lib_path.name, ptxas=report,
          ptxas_matcher=match_kernels,
          ptxas_pk_fwd_bf16=fwd, ptxas_pk_bwd_bf16=bwd, ptxas_pk_dq_bf16=dq, pk_dq_bf16=pk_dq_bf16,
@@ -1646,6 +1687,67 @@ def tie_costs(rng, B, G, P):
     return cost, mask
 
 
+def signed_zero_costs(rng, B, G, P):
+    """Costs drawn from {-0, +0, 1, 2}: -0 and +0 must tie (the kernel's
+    argmin keys take -0 for +0); image 0 has every row, the others ~3/4."""
+    cost = rng.choice(np.array([-0.0, 0.0, 1.0, 2.0], np.float32), (B, G, P))
+    mask = rng.random((B, G)) < 0.75
+    mask[0] = True
+    return cost, mask
+
+
+def prior_boxes(P):
+    """[P, 4] xyxy: the box-bias prior's boxes (ops/box_bias.py, what a box
+    head with zero residuals predicts) on an h x w patch grid, h the largest
+    divisor of P not above its square root (48 x 48 at P = 2304)."""
+    h = max(d for d in range(1, math.isqrt(P) + 1) if P % d == 0)
+    cxcywh = 1 / (1 + np.exp(-compute_box_bias(h, P // h).astype(np.float64)))
+    return np.concatenate([cxcywh[:, :2] - cxcywh[:, 2:] / 2,
+                           cxcywh[:, :2] + cxcywh[:, 2:] / 2], 1).astype(np.float32)
+
+
+def matching_inputs(rng, pred_boxes, gt_boxes, gt_mask, n_classes):
+    """The port's cost_matrix (on the CPU, an image at a time) of random sims
+    in [-1, 1] and random labels against pred_boxes [B, P, 4] and gt_boxes
+    [B, G, 4], then the host's assignment of it: -> (cost [B, G, P],
+    gt_mask, pred_boxes, target_classes [B, P] int64), the matcher's two
+    kernels' inputs as the loss hands them over."""
+    B, P, _ = pred_boxes.shape
+    G = gt_boxes.shape[1]
+    sims = rng.uniform(-1, 1, (B, P, n_classes)).astype(np.float32)
+    labels = rng.integers(0, n_classes, (B, G)).astype(np.int32)
+    cost = np.concatenate([matcher.cost_matrix(*(torch.from_numpy(x[b:b + 1]) for x in (
+        sims, pred_boxes, labels, gt_boxes, gt_mask))).numpy() for b in range(B)])
+    _, target = matcher.assign(torch.from_numpy(cost), torch.from_numpy(labels),
+                               torch.from_numpy(gt_mask), n_classes)
+    return cost, gt_mask, pred_boxes, target.numpy()
+
+
+def train_like_inputs(rng, B, G, P, n_classes):
+    """The train step's matcher inputs at random weights: train_batch's 4-10
+    GT boxes of G slots, predictions at the box-bias prior's boxes."""
+    batch = train_batch(rng, B, G, 0, n_classes)
+    pred = np.broadcast_to(prior_boxes(P), (B, P, 4)).copy()
+    return matching_inputs(rng, pred, batch["boxes"], batch["gt_mask"], n_classes)
+
+
+def crowd_inputs(rng, B, G, P, n_classes):
+    """A crowded scene in every image: all G GT slots valid, centres in a
+    0.25 x 0.25 window placed at random, sides 0.03-0.1, against the
+    box-bias prior's boxes jittered (centres by a quarter patch, sides by
+    10%), so that GT rows compete for the same patches and the augmenting
+    paths are long: the dense scenes that fill max_gt."""
+    prior = prior_boxes(P)
+    c, wh = (prior[:, :2] + prior[:, 2:]) / 2, prior[:, 2:] - prior[:, :2]
+    c = c + rng.normal(scale=0.25, size=(B, P, 2)) * wh
+    wh = wh * (1 + 0.1 * rng.normal(size=(B, P, 2)))
+    pred = np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
+    centre = rng.uniform(0.0, 0.75, (B, 1, 2)) + rng.uniform(0.0, 0.25, (B, G, 2))
+    side = rng.uniform(0.03, 0.1, (B, G, 2))
+    gt = np.clip(np.concatenate([centre - side / 2, centre + side / 2], -1), 0, 1)
+    return matching_inputs(rng, pred, gt.astype(np.float32), np.ones((B, G), bool), n_classes)
+
+
 def host_ms(fn, calls=3):
     """Median host wall of fn() in ms (fn ends in a host read)."""
     walls = []
@@ -1696,14 +1798,20 @@ def phase_kernel_matcher(matching):
     """jv_assign and propagate_labels against their plain versions (the
     host solver and the host walk), exact equality: on the matrices and
     boxes of phase train's own steps (`matching`, read back here only),
-    then jv_assign on tie_costs at MATCH_SHAPES and propagate_labels on
-    propagation_cases at [32, 2304] and [4, 3600]. Times at the train
-    step's shapes ([32, 64, 2304] and [32, 2304]): CUDA events through the
-    wrapper, the profiler's device time, the plain version with its device
-    read, the bound by bytes. The steps' assignments are their own; their
-    propagation is launched again on their inputs. Each kernel's
-    max_abs_err is the largest |kernel - host| of its outputs (columns,
-    classes) over every comparison here. Returns the two kernels' rows."""
+    then jv_assign on tie_costs at MATCH_SHAPES and on signed_zero_costs at
+    [32, 16, 2304], both kernels on crowd_inputs at [32, 64, 2304], and
+    propagate_labels on propagation_cases at [32, 2304] and [4, 3600].
+    Every timed input (the train step's last, tie-heavy, crowd, chains)
+    gives the profiler's device time (queued_ms) and CUDA events through
+    the wrapper,
+    and the slowest image's Dijkstra steps or foreground turns (counted by
+    the plain version) with the device microseconds a step or turn; at the
+    train step's shapes ([32, 64, 2304] and [32, 2304]) also the plain
+    version with its device read and the bound by bytes. The steps'
+    assignments are their own; their propagation is launched again on
+    their inputs. Each kernel's max_abs_err is the largest |kernel - host|
+    of its outputs (columns, classes) over every comparison here. Returns
+    the two kernels' rows."""
     rng = np.random.default_rng(14)
     err = {"jv_assign": 0, "propagate_labels": 0}
 
@@ -1713,6 +1821,44 @@ def phase_kernel_matcher(matching):
         d = np.abs(np.asarray(got, np.int64) - np.asarray(want, np.int64))
         err[name] = max(err[name], int(d.max()) if d.size else 0)
         return int((d != 0).sum())
+
+    def timed(kernel, fn, counts, iters=20):
+        """fn's device ms a call (queued) and its events ms; the slowest
+        image's count and the device microseconds for each of its steps or
+        turns."""
+        dev = queued_ms(fn, (kernel,), iters)
+        n = int(max(counts))
+        return {"device_ms": dev, "ms": cuda_ms(fn, iters),
+                "slowest_image_count": n,
+                "device_us_per_count": dev * 1e3 / n if n and isinstance(dev, float) else None}
+
+    def assign_case(name, cost, mask, c=None, m=None, iters=20):
+        """jv_assign on cost [B, R, C] against the host, exact, and timed."""
+        c = torch.from_numpy(cost).cuda() if c is None else c
+        m = torch.from_numpy(mask).cuda() if m is None else m
+        steps = []
+        want = matcher.hungarian(cost, mask, steps)
+        case = {"input": name, "shape": list(cost.shape), "valid_rows": int(mask.sum()),
+                "mismatches": compare("jv_assign", matcher.jv_assign(c, m).cpu().numpy(), want)}
+        check(case["mismatches"] == 0 and (want[~mask] == -1).all(),
+              f"jv_assign against the host: {case}")
+        return {**case, **timed("jv_assign", lambda: matcher.jv_assign(c, m), steps, iters)}
+
+    def propagate_case(name, boxes, classes, nc, bx=None, tc=None, iters=20):
+        """propagate_labels on boxes [B, P, 4] against the host, exact, and
+        timed."""
+        bx = torch.from_numpy(boxes).cuda() if bx is None else bx
+        tc = torch.from_numpy(classes).cuda() if tc is None else tc
+        turns = []
+        want = np.stack([losses._propagate_labels(boxes[b], classes[b], nc, thr, turns)
+                         for b in range(len(boxes))])
+        got = losses.propagate_labels(bx, tc, nc, thr).cpu().numpy()
+        case = {"input": name, "shape": list(classes.shape),
+                "mismatches": compare("propagate_labels", got, want),
+                "relabelled": int((want != classes).sum())}
+        check(case["mismatches"] == 0, f"propagate_labels against the host: {case}")
+        return {**case, **timed("propagate_labels",
+                                lambda: losses.propagate_labels(bx, tc, nc, thr), turns, iters)}
 
     n_classes = 80
     train_steps = []
@@ -1729,58 +1875,38 @@ def phase_kernel_matcher(matching):
               f"the train step's matcher kernels against the host: {step}")
         train_steps.append(step)
     check(len(train_steps) == 4, f"{len(train_steps)} recorded train steps")
-    ties = []
-    for shape in MATCH_SHAPES:
-        cost, mask = tie_costs(rng, *shape)
-        c, m = torch.from_numpy(cost).cuda(), torch.from_numpy(mask).cuda()
-        got = matcher.jv_assign(c, m).cpu().numpy()
-        want = matcher.hungarian(cost, mask)
-        case = {"shape": list(shape), "valid_rows": int(mask.sum()),
-                "mismatches": compare("jv_assign", got, want),
-                "ms": cuda_ms(lambda: matcher.jv_assign(c, m), 3)}
-        check(case["mismatches"] == 0 and (want[~mask] == -1).all(),
-              f"jv_assign on tie-heavy costs: {case}")
-        ties.append(case)
+    ties = [assign_case("ties", *tie_costs(rng, *shape), iters=3) for shape in MATCH_SHAPES]
+    signed_zeros = assign_case("signed_zeros", *signed_zero_costs(rng, 32, 16, 2304), iters=3)
+    cost, mask, boxes, target = crowd_inputs(rng, 32, 64, 2304, n_classes)
+    crowd = {"jv_assign": assign_case("crowd", cost, mask),
+             "propagate_labels": propagate_case("crowd", boxes, target, n_classes)}
     chains = []
     for B, P in ((32, 2304), (4, 3600)):
-        bx, tc = propagation_cases(rng, B, P, n_classes)
-        want = losses.propagate_labels(torch.from_numpy(bx), torch.from_numpy(tc),
-                                       n_classes, 0.85).numpy()
-        got = losses.propagate_labels(torch.from_numpy(bx).cuda(), torch.from_numpy(tc).cuda(),
-                                      n_classes, 0.85).cpu().numpy()
-        case = {"shape": [B, P], "mismatches": compare("propagate_labels", got, want),
-                "relabelled": int((want != tc).sum())}
-        check(case["mismatches"] == 0 and case["relabelled"] >= 12 * B,
-              f"propagate_labels on chains and boundary pairs: {case}")
+        case = propagate_case("chains", *propagation_cases(rng, B, P, n_classes), n_classes)
+        check(case["relabelled"] >= 12 * B, f"propagate_labels on chains and boundary pairs: {case}")
         chains.append(case)
 
     # times at the train step's shapes, on its own inputs
     cost, mask, _, classes, nc = matching["assign"][-1]
     boxes = matching["boxes"][-1]
     B, G, P = cost.shape
-    timed = {"jv_assign": compare("jv_assign", matcher.jv_assign(cost, mask).cpu().numpy(),
-                                  matcher.hungarian(cost.cpu().numpy(), mask.cpu().numpy())),
-             "propagate_labels": compare(
-                 "propagate_labels", losses.propagate_labels(boxes, classes, nc, thr).cpu().numpy(),
-                 losses.propagate_labels(boxes.cpu(), classes.cpu(), nc, thr).numpy())}
-    check(timed == {"jv_assign": 0, "propagate_labels": 0},
-          f"the matcher kernels on the timed inputs, mismatches: {timed}")
-    jv = {"shape": [B, G, P], "max_abs_err": float(err["jv_assign"]),
-          "ms": cuda_ms(lambda: matcher.jv_assign(cost, mask), 20),
-          "device_ms": device_ms(lambda: matcher.jv_assign(cost, mask)),
+    jv = {**assign_case("train_step", cost.cpu().numpy(), mask.cpu().numpy(), cost, mask),
+          "max_abs_err": float(err["jv_assign"]),
           "plain_ms": host_ms(lambda: matcher.hungarian(cost.cpu().numpy(),
                                                         mask.cpu().numpy())),
           "library_ms": None, "sequential": True}
     jv["bound_ms"], jv["bound_by"] = bound(0, B * G * P * 4 + B * G + B * G * 4)
-    prop = {"shape": [B, P], "max_abs_err": float(err["propagate_labels"]),
-            "ms": cuda_ms(lambda: losses.propagate_labels(boxes, classes, nc, thr), 20),
-            "device_ms": device_ms(lambda: losses.propagate_labels(boxes, classes, nc, thr)),
+    prop = {**propagate_case("train_step", boxes.cpu().numpy(), classes.cpu().numpy(), nc,
+                             boxes, classes),
+            "max_abs_err": float(err["propagate_labels"]),
             "plain_ms": host_ms(lambda: losses.propagate_labels(boxes.cpu(), classes.cpu(),
                                                                 nc, thr)),
             "library_ms": None, "sequential": True}
     prop["bound_ms"], prop["bound_by"] = bound(0, B * P * 16 + 2 * B * P * 8)
-    emit("kernel_matcher", train_steps=train_steps, ties=ties, propagation=chains,
-         jv_assign=jv, propagate_labels=prop, nvidia_smi=nvidia_smi())
+    check(err == {"jv_assign": 0, "propagate_labels": 0}, f"the matcher kernels' errors: {err}")
+    emit("kernel_matcher", train_steps=train_steps, ties=ties, signed_zeros=signed_zeros,
+         crowd=crowd, propagation=chains, jv_assign=jv, propagate_labels=prop,
+         nvidia_smi=nvidia_smi())
     return {"jv_assign": jv, "propagate_labels": prop}
 
 
@@ -3581,7 +3707,7 @@ def main():
         "transposed_fwd": {k: transposed["fwd"][k] for k in ("max_abs_err", *keys)},
         "transposed_dq": {k: transposed["dq"][k] for k in ("max_abs_err", *keys)},
         "transposed_dkv": {k: transposed["dkv"][k] for k in ("max_abs_err", *keys)},
-        **{name: {k: match_rows[name][k] for k in ("max_abs_err", *keys)}
+        **{name: {k: match_rows[name][k] for k in ("max_abs_err", *keys, "device_ms")}
            for name in ("jv_assign", "propagate_labels")},
     }
     # the backward rows' library call by name

@@ -67,7 +67,8 @@ def _iou_above_row(box: np.ndarray, boxes: np.ndarray, threshold: float) -> np.n
 
 
 def _propagate_labels(pred_boxes: np.ndarray, target_classes: np.ndarray,
-                      n_classes: int, iou_threshold: float) -> np.ndarray:
+                      n_classes: int, iou_threshold: float,
+                      counts: Optional[list] = None) -> np.ndarray:
     """Sequential IoU > threshold label propagation of one image, on the
     host: pred_boxes [P, 4] float32, target_classes [P] -> [P].
 
@@ -76,7 +77,8 @@ def _propagate_labels(pred_boxes: np.ndarray, target_classes: np.ndarray,
     threshold, and a patch relabelled earlier in the sweep propagates in
     turn (chaining). A patch that is background at its turn changes
     nothing, so only foreground turns are computed: the result equals the
-    full [P, P] sweep."""
+    full [P, P] sweep. counts, if given, gets the number of foreground turns
+    appended (the kernel's sequential depth)."""
     boxes = np.asarray(pred_boxes, np.float32)
     tc = np.array(target_classes, np.int32)
     pending = sorted(np.flatnonzero(tc != n_classes).tolist())
@@ -90,6 +92,8 @@ def _propagate_labels(pred_boxes: np.ndarray, target_classes: np.ndarray,
         later = new[new > j].tolist()
         if later:  # patches that become foreground after j take their turn later
             pending = pending[:k] + sorted(set(pending[k:]) | set(later))
+    if counts is not None:
+        counts.append(len(pending))
     return tc
 
 
@@ -98,8 +102,9 @@ def propagate_labels(pred_boxes: torch.Tensor, target_classes: torch.Tensor,
     """The sequential IoU > threshold label propagation of every image:
     pred_boxes [B, P, 4] xyxy, target_classes [B, P] -> [B, P] int64 on
     their device. CPU tensors run `_propagate_labels` per image; CUDA
-    tensors the kernel (counted in `propagate_labels.launches`), the same
-    classes bit for bit, on the current stream with no host read."""
+    tensors the kernel (counted in `propagate_labels.launches`; P <=
+    matcher.KERNEL_MAX_COLUMNS), the same classes bit for bit, on the
+    current stream with no host read."""
     B, P = target_classes.shape
     if pred_boxes.shape != (B, P, 4):
         raise ValueError(f"propagate_labels takes boxes [B, P, 4] and classes [B, P], "
@@ -113,9 +118,14 @@ def propagate_labels(pred_boxes: torch.Tensor, target_classes: torch.Tensor,
     if pred_boxes.device.type != "cuda" or target_classes.device != pred_boxes.device:
         raise ValueError(f"propagate_labels runs on cpu or cuda tensors on one device, "
                          f"got {pred_boxes.device} and {target_classes.device}")
+    if P > matcher.KERNEL_MAX_COLUMNS:
+        raise ValueError(f"propagate_labels on the card takes at most "
+                         f"{matcher.KERNEL_MAX_COLUMNS} patches, got {P}")
     out = torch.empty((B, P), dtype=torch.long, device=pred_boxes.device)
     if B and P:
         bx = pred_boxes.detach().float().contiguous()
+        if bx.data_ptr() % 16:  # the kernel loads each box as one float4
+            bx = bx.clone()
         tc = target_classes.long().contiguous()
         launch("owlvit_propagate_labels", pred_boxes.device, bx.data_ptr(), tc.data_ptr(),
                out.data_ptr(), B, P, n_classes, float(iou_threshold))

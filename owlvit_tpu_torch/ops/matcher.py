@@ -27,8 +27,13 @@ import torch
 from . import boxes as box_ops
 from ._cuda import launch
 
+# the most columns (patches) the matcher kernels take: 512 threads an image,
+# each holding up to 8 columns in registers (csrc/matcher.cu)
+KERNEL_MAX_COLUMNS = 4096
 
-def hungarian(cost: np.ndarray, row_mask: Optional[np.ndarray] = None) -> np.ndarray:
+
+def hungarian(cost: np.ndarray, row_mask: Optional[np.ndarray] = None,
+              counts: Optional[list] = None) -> np.ndarray:
     """Min-cost assignment of cost [R, C] or [B, R, C] (R <= C), float32.
 
     Returns col4row [R] or [B, R] int32: the column of each row, -1 for rows
@@ -37,7 +42,9 @@ def hungarian(cost: np.ndarray, row_mask: Optional[np.ndarray] = None) -> np.nda
     order, one Dijkstra per row over all columns, the fp32 expression
     `min_val + cost[i] - u[i] - v` evaluated in that order, the strict
     `d < shortest`, argmin's first index, then the dual updates and the
-    augmentation along the alternating path."""
+    augmentation along the alternating path. counts, if given, is extended
+    by each image's number of Dijkstra steps (the kernel's sequential
+    depth)."""
     cost = np.asarray(cost, np.float32)
     single = cost.ndim == 2
     if single:
@@ -52,6 +59,7 @@ def hungarian(cost: np.ndarray, row_mask: Optional[np.ndarray] = None) -> np.nda
     row4col = np.full((nb, C), -1, np.int32)
     col4row = np.full((nb, R), -1, np.int32)
     inf = np.float32(np.inf)
+    steps = np.zeros(nb, np.int64)
     with np.errstate(invalid="ignore", over="ignore"):
         for cur in range(R):
             act = np.flatnonzero(mask[:, cur])  # images whose row `cur` is real
@@ -69,6 +77,7 @@ def hungarian(cost: np.ndarray, row_mask: Optional[np.ndarray] = None) -> np.nda
             while live.any():  # one Dijkstra step of every live image
                 L = np.flatnonzero(live)
                 b, iL = act[L], i[L]
+                steps[b] += 1
                 row_visited[L, iL] = True
                 d = (min_val[L, None] + cost[b, iL]) - u[b, iL][:, None] - v[b]
                 upd = ~visited[L] & (d < shortest[L])
@@ -100,6 +109,8 @@ def hungarian(cost: np.ndarray, row_mask: Optional[np.ndarray] = None) -> np.nda
                     j, col4row[bb, r] = int(col4row[bb, r]), j
                     if r == cur:
                         break
+    if counts is not None:
+        counts.extend(steps.tolist())
     return col4row[0] if single else col4row
 
 
@@ -132,7 +143,8 @@ def jv_assign(cost: torch.Tensor, row_mask: torch.Tensor) -> torch.Tensor:
     row_mask [B, R] marks False skipped -> col4row [B, R] int32 on cost's
     device, -1 for skipped rows: `hungarian`'s assignment, ties included.
     CPU tensors run `hungarian`; CUDA tensors the kernel (counted in
-    `jv_assign.launches`), on the current stream, with no host read."""
+    `jv_assign.launches`; C <= KERNEL_MAX_COLUMNS), on the current stream,
+    with no host read."""
     if cost.dim() != 3 or row_mask.shape != cost.shape[:2]:
         raise ValueError(f"jv_assign takes cost [B, R, C] and row_mask [B, R], got "
                          f"{tuple(cost.shape)} and {tuple(row_mask.shape)}")
@@ -145,6 +157,9 @@ def jv_assign(cost: torch.Tensor, row_mask: torch.Tensor) -> torch.Tensor:
     if cost.device.type != "cuda" or row_mask.device != cost.device:
         raise ValueError(f"jv_assign runs on cpu or cuda tensors on one device, got "
                          f"{cost.device} and {row_mask.device}")
+    if C > KERNEL_MAX_COLUMNS:
+        raise ValueError(f"jv_assign on the card takes at most {KERNEL_MAX_COLUMNS} columns, "
+                         f"got {C}")
     out = torch.empty((B, R), dtype=torch.int32, device=cost.device)
     if B and R:
         c = cost.detach().float().contiguous()

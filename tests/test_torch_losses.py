@@ -8,6 +8,10 @@ matrix, the box functions and the loss terms atol 1e-5 (summation order over
 magnitude is below 0.1).
 """
 
+import functools
+import importlib.util
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -75,14 +79,32 @@ def _jax_hungarian(cost, mask):
     return np.asarray(jax.vmap(jmatcher.hungarian)(jnp.asarray(cost), jnp.asarray(mask)))
 
 
+@functools.lru_cache(maxsize=1)
+def _smoke():
+    """chip_smoke.py as a module: its matcher input families (importing it
+    needs no card)."""
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_inputs", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 @pytest.mark.parametrize("case", ["random", "integer_ties", "masked_rows",
-                                  "duplicate_columns"])
+                                  "duplicate_columns", "crowd", "signed_zeros"])
 def test_hungarian_equals_jax(case):
     """The numpy solver, and jv_assign on CPU tensors (which runs it),
-    against the vmapped JAX solver."""
+    against the vmapped JAX solver; "crowd" and "signed_zeros" are the
+    smoke's families (chip_smoke.crowd_inputs: every GT row valid and
+    competing for the same patches; signed_zero_costs: -0 and +0 must tie)
+    at this file's shape."""
     rng = np.random.default_rng(2)
     mask = np.ones((B, G), bool)
-    if case == "random":
+    if case == "crowd":
+        cost, mask = _smoke().crowd_inputs(rng, B, G, P, C)[:2]
+    elif case == "signed_zeros":
+        cost, mask = _smoke().signed_zero_costs(rng, B, G, P)
+    elif case == "random":
         cost = rng.normal(size=(B, G, P)).astype(np.float32)
     elif case == "integer_ties":  # many equal costs: the tie-breaking must agree
         cost = rng.integers(0, 3, size=(B, G, P)).astype(np.float32)

@@ -305,6 +305,7 @@ print("ok")
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "tools/torch_pk_fwd_profile.py",
                                     "tools/torch_pk_bwd_profile.py",
+                                    "tools/torch_matcher_profile.py",
                                     "tools/torch_add_ln_profile.py",
                                     "tools/torch_serve_profile.py"])
 def test_gpu_scripts_import_without_jax(tmp_path, script):

@@ -1,5 +1,6 @@
-"""The pure helpers of tools/torch_serve_profile.py (device-time sums) and
-tools/torch_pk_bwd_profile.py (turn order, median and spread), on the CPU."""
+"""The pure helpers of tools/torch_serve_profile.py (device-time sums),
+tools/torch_pk_bwd_profile.py (turn order, median and spread) and
+tools/torch_matcher_profile.py (the slowest image, summaries), on the CPU."""
 
 import importlib.util
 from pathlib import Path
@@ -66,3 +67,26 @@ def test_in_turns_order(names, rounds, order):
 ])
 def test_summary(readings, median, spread):
     assert bwd_prof.summary(readings) == {"median": median, "spread": spread}
+
+
+_MATCH_PATH = Path(__file__).resolve().parent.parent / "tools" / "torch_matcher_profile.py"
+_match_spec = importlib.util.spec_from_file_location("torch_matcher_profile", _MATCH_PATH)
+match_prof = importlib.util.module_from_spec(_match_spec)
+_match_spec.loader.exec_module(match_prof)
+
+
+@pytest.mark.parametrize("counts, image, count", [
+    ([3], 0, 3),
+    ([10, 2080, 7, 2080], 1, 2080),  # the first of equal counts
+    ([0, 0], 0, 0),
+])
+def test_slowest_image(counts, image, count):
+    assert match_prof.slowest(counts) == (image, count)
+
+
+def test_summaries_keep_readings_that_are_not_times():
+    """A build whose profile saw no device events keeps its raw readings;
+    the others get their median and spread."""
+    none = "not measured: the profiler saw no device events"
+    out = match_prof.summaries({"base": [1.0, 3.0], "tree": [none, 0.5]})
+    assert out == {"base": {"median": 2.0, "spread": 1.0}, "tree": [none, 0.5]}
