@@ -226,13 +226,36 @@ Phases, each printing its numbers on a line of its own:
      update against the single-device bf16 run's own distance from fp32),
      launches per rank, and each rank's step wall ("two ranks share one
      card": no scaling figure).
+ 16. prefix_switches: the JAX package's opt-in paths, B/16 bf16, random
+     weights (seed 0). pk_fwd's fast softmax mode (OWLVIT_FAST_SOFTMAX=1)
+     at [32, 2305, 768] and [8, 2305, 768] against its plain version (o
+     within FAST_ERR_FACTOR times the plain fast version's own distance
+     from the exact one), an emulation of its online arithmetic (lse
+     within TOL_FAST_LSE, o's mean-abs within FAST_O_MEAN_FRACTION of the
+     fast-vs-exact one) and the exact version (o closer to the plain fast
+     one), limits the per-row max kernel must fail; two launches
+     bit-equal; the two exp forms' full-row errors, its time in turns with the
+     default mode beside SDPA's forward and the bound; linear_q at
+     [73760, 768] x [768, 3072] and [73760, 3072] x [3072, 768] bit-equal
+     to its CPU run, timed beside bf16 cuBLAS and torch._int_mm with the
+     int8 bound; 3 uncached train steps (batch 32, max_gt 64) each under
+     the default, OWLVIT_FAST_SOFTMAX=1 and OWLVIT_QUANT_BACKBONE=1 in
+     turns (launches: 11 fast pk_fwd and 1 pk_fwd a fast step), img/s;
+     one cached fill step under each, the pools' max-rel from the
+     default's; DetectorServer at bucket 8 under OWLVIT_QUANT_BACKBONE=1
+     and under OWLVIT_STATIC_MAX=off with OWLVIT_FAST_SOFTMAX=1, rows
+     bit-equal to a direct call; a train step at max_gt 16 under
+     OWLVIT_MATCH_PRUNE=1 and the pruned solver on tie-heavy and
+     signed-zero costs at [32, 16, 2304] and [32, 16, 576], equal to the
+     host's.
 The kernels JSON (second-to-last line) gives each kernel's launches summed
 over the paths driven (serving, the open-vocabulary lanes, bulk_detect
 and the CLI's inference commands, the mesh servers, the uncached and
 cached train runs, bench_cached's steps, the
 three fine-tune runs, the exported programs and the CLI's evals through
 and beside them, the staged and streamed runs, the training options'
-drives, the mesh phase's runs (each rank's counts added), and for the
+drives, the mesh phase's runs (each rank's counts added), the switch
+phase's drives, and for the
 transposed
 entries alone the drives of phase 6; each counted from 0 just
 before it and read just after, each launch once, where the wrapper makes it),
@@ -251,6 +274,7 @@ import io
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -274,6 +298,7 @@ from owlvit_tpu_torch.ops import _cuda, fused_ln, losses, matcher  # noqa: E402
 from owlvit_tpu_torch.ops.box_bias import compute_box_bias  # noqa: E402
 from owlvit_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from owlvit_tpu_torch.ops import nms as nms_ops  # noqa: E402
+from owlvit_tpu_torch.ops import quant as tquant  # noqa: E402
 from owlvit_tpu_torch.ops.quant import dequantize_rows  # noqa: E402
 from owlvit_tpu_torch.ops.preprocess import normalize_image  # noqa: E402
 from owlvit_tpu_torch.parallel import create_mesh, shard_aligned_batches  # noqa: E402
@@ -290,6 +315,10 @@ _BWD_SRC = "owlvit_tpu_torch/csrc/flash_attention_bwd.cu"
 KERNELS = {
     "pk_fwd": ("owlvit_tpu_torch/csrc/flash_attention_fwd.cu",
                "owlvit_tpu/ops/flash_attention.py:368"),
+    # row 1's variant: the same kernel in its fast softmax mode, the TPU
+    # kernel's fast_softmax branch (OWLVIT_FAST_SOFTMAX=1, frozen layers)
+    "pk_fwd_fast": ("owlvit_tpu_torch/csrc/flash_attention_fwd.cu",
+                    "owlvit_tpu/ops/flash_attention.py:403"),
     "pk_bwd": (_BWD_SRC, "owlvit_tpu/ops/flash_attention.py:654"),
     # the split pair (mode "both"): dq by query tile, dk and dv by key tile
     "pk_dq": (_BWD_SRC, "owlvit_tpu/ops/flash_attention.py:567"),
@@ -312,7 +341,8 @@ KERNELS = {
 # each kernel's launch counter: (wrapper, attribute), added to where the
 # wrapper launches; pk_fwd, pk_dq and pk_dkv count a one-head launch (the
 # transposed layout) under transposed_launches and no other
-COUNTERS = {"pk_fwd": (fa.pk_fwd, "launches"), "pk_bwd": (fa.pk_bwd, "launches"),
+COUNTERS = {"pk_fwd": (fa.pk_fwd, "launches"), "pk_fwd_fast": (fa.pk_fwd, "fast_launches"),
+            "pk_bwd": (fa.pk_bwd, "launches"),
             "pk_dq": (fa.pk_dq, "launches"), "pk_dkv": (fa.pk_dkv, "launches"),
             "add_ln_fwd": (fused_ln.add_ln_fwd, "launches"),
             "add_ln_bwd": (fused_ln.add_ln_bwd, "launches"),
@@ -321,7 +351,9 @@ COUNTERS = {"pk_fwd": (fa.pk_fwd, "launches"), "pk_bwd": (fa.pk_bwd, "launches")
             "transposed_dkv": (fa.pk_dkv, "transposed_launches"),
             "jv_assign": (matcher.jv_assign, "launches"),
             "propagate_labels": (losses.propagate_labels, "launches")}
-SWITCHES = ("OWLVIT_FUSED_LN", "OWLVIT_PACKED_FLASH", "OWLVIT_PACKED_BWD")
+SWITCHES = ("OWLVIT_FUSED_LN", "OWLVIT_PACKED_FLASH", "OWLVIT_PACKED_BWD",
+            "OWLVIT_FAST_SOFTMAX", "OWLVIT_QUANT_BACKBONE", "OWLVIT_MATCH_PRUNE",
+            "OWLVIT_MATCH_SKIP", "OWLVIT_STATIC_MAX")
 BATCH = 4
 C = fa.STATIC_MAX_DEFAULT
 # Tolerances. Forward, bf16: both sides round p to bf16 and differ in
@@ -604,13 +636,14 @@ def phase_build():
     _cuda.library()
     build_s = time.perf_counter() - t0
     report = _cuda.ptxas_report(lib_path)
-    # the bf16 attention kernels on keys of their own: the forward (both
-    # softmax modes), the fused backward (and its delta kernel), the pair's
-    # dq kernel and its dkv kernel (with and without q * scale tiles)
+    # the bf16 attention kernels on keys of their own: the forward (three
+    # softmax modes: per-row max, fixed shift, fast), the fused backward (and
+    # its delta kernel), the pair's dq kernel and its dkv kernel (with and
+    # without q * scale tiles)
     fwd, bwd, dq, dkv = ({name: lines for name, lines in report.items()
                           if kern in name and "bf16" in name}
                          for kern in ("pk_fwd", "pk_bwd", "pk_dq", "pk_dkv"))
-    check(len(fwd) == 2 and len(bwd) == 2 and len(dq) == 1 and len(dkv) == 2,
+    check(len(fwd) == 3 and len(bwd) == 2 and len(dq) == 1 and len(dkv) == 2,
           f"ptxas report of the bf16 attention kernels: {fwd} {bwd} {dq} {dkv}")
     check(all("0 bytes spill stores" in " ".join(lines)
               for lines in (*fwd.values(), *dq.values(), *dkv.values())),
@@ -618,6 +651,14 @@ def phase_build():
     serialized = {name: lines for name, lines in {**fwd, **bwd, **dq, **dkv}.items()
                   if _cuda.wgmma_serialized(lines)}
     check(not serialized, f"ptxas serialises the wgmma of bf16 attention kernels: {serialized}")
+    # the fast mode's instantiation, pk_fwd_bf16<2>: at most 128 registers,
+    # so that two blocks share an SM (its __launch_bounds__)
+    fast = [lines for name, lines in fwd.items() if "pk_fwd_bf16ILi2E" in name]
+    check(len(fast) == 1, f"ptxas report of the fast pk_fwd: {fwd}")
+    fast_regs = [int(m.group(1)) for line in fast[0]
+                 for m in [re.search(r"Used (\d+) registers", line)] if m]
+    check(len(fast_regs) == 1 and fast_regs[0] <= 128,
+          f"the fast pk_fwd's registers: {fast[0]}")
     # the bf16 add+LN backward, one instantiation per width (D = 256 .. 1024):
     # registers and spills, its dynamic shared memory and blocks per SM
     ln_bwd = {name: lines for name, lines in report.items()
@@ -647,7 +688,8 @@ def phase_build():
           f"the matcher kernels spill registers: {match_kernels}")
     emit("build", seconds=build_s, library=lib_path.name, ptxas=report,
          ptxas_matcher=match_kernels,
-         ptxas_pk_fwd_bf16=fwd, ptxas_pk_bwd_bf16=bwd, ptxas_pk_dq_bf16=dq, pk_dq_bf16=pk_dq_bf16,
+         ptxas_pk_fwd_bf16=fwd, pk_fwd_bf16_fast_registers=fast_regs[0],
+         ptxas_pk_bwd_bf16=bwd, ptxas_pk_dq_bf16=dq, pk_dq_bf16=pk_dq_bf16,
          pk_dkv_bf16=pk_dkv_bf16,
          ptxas_add_ln_bwd_bf16=ln_bwd,
          add_ln_bwd_bf16_by_width=ln_widths)
@@ -3642,6 +3684,401 @@ def phase_mesh():
     return launches
 
 
+# ------------------------------------------------------------ prefix_switches
+
+# The fast softmax's limits. The first: the kernel's o no farther from its
+# plain version (full-row) than FAST_ERR_FACTOR times the plain fast
+# version's own distance from the exact one. That limit cannot tell the
+# fast mode from the per-row max (the per-row max kernel sits 1.0x that
+# distance away), so the kernel is also held to an emulation of its own
+# arithmetic (`pk_fwd_fast_online`: the running max over 64-key tiles):
+# lse within TOL_FAST_LSE of it, o's mean-abs from it within
+# FAST_O_MEAN_FRACTION of the plain fast version's mean-abs from the exact
+# one, and o's mean-abs closer to the plain fast version than to the exact
+# one. The per-row max kernel, run on the same inputs, must fail each of
+# those three (`fast_limits`). Readings on an H100 at [32|8, 2305, 768]:
+# the fast kernel's lse 6.3e-5 / 5.0e-5 from the emulation and its o 0.2%
+# of that mean-abs; the per-row max kernel 7.2e-4 / 6.4e-4 and 92%; an
+# ex2.approx.ftz.bf16x2 form of the fast mode 4.1e-3 / 3.7e-3 and 123%.
+# Each limit sits near the geometric mean of the fast kernel's reading and
+# the per-row max kernel's.
+FAST_ERR_FACTOR = 2.0
+TOL_FAST_LSE = 2e-4
+FAST_O_MEAN_FRACTION = 0.05
+PEAK_INT8_OPS = 1979e12  # H100 SXM datasheet, dense
+# linear_q at the B/16 batch-32 prefix's shapes: [m, k] x [k, n]
+LINEAR_Q_SHAPES = ((32 * 2305, 768, 3072), (32 * 2305, 3072, 768))
+# the fast forward's check and time shapes: the train step's prefix, serving
+FAST_SHAPES = (32, 8)
+PREFIX_SWITCHES = {"default": {}, "fast": {"OWLVIT_FAST_SOFTMAX": "1"},
+                   "quant": {"OWLVIT_QUANT_BACKBONE": "1"}}
+
+
+def fast_form_errors(q, k, v, H, scale):
+    """The two exp forms the fast kernel could take, full-row in PyTorch on
+    the card, each against the plain fast version (exp(bf16(s - m)) in
+    bf16): "ex2_f32", the kernel's, 2^(bf16(s - m) log2 e) in fp32 then
+    rounded to bf16, and "ex2_bf16x2", 2^bf16(s log2 e - m log2 e) rounded
+    to bf16 (what ex2.approx.ftz.bf16x2 computes, up to its rounding).
+    -> {form: o max-rel}."""
+    B, S, D = q.shape
+    log2e = 1.4426950408889634
+    hq, hk, hv = (x.reshape(B, S, H, D // H).transpose(1, 2).float() for x in (q, k, v))
+    s = ((hq * scale).to(q.dtype).float() @ hk.transpose(-1, -2))
+    m = s.amax(-1, keepdim=True)
+    out = {}
+    for form, p in (("plain", torch.exp((s - m).to(torch.bfloat16))),
+                    ("ex2_bf16x2", torch.exp2((s * log2e - m * log2e).to(torch.bfloat16))),
+                    ("ex2_f32", torch.exp2((s - m).to(torch.bfloat16).float() * log2e)
+                     .to(torch.bfloat16))):
+        p = p.float()
+        out[form] = (p @ hv) / p.sum(-1, keepdim=True)
+        del p
+    del s, m
+    return {form: max_rel(out[form], out["plain"]) for form in ("ex2_bf16x2", "ex2_f32")}
+
+
+def pk_fwd_fast_online(q, k, v, H, scale, tile=64):
+    """The fast kernel's own arithmetic in PyTorch ([B, S, D] bf16, every
+    key valid): the running max m over 64-key tiles, each tile's p =
+    bf16(exp(bf16(s - m))) at the max so far, l and the fp32 o rescaled by
+    exp(m_old - m_new) when the max moves, o = bf16(acc / l) and lse = m +
+    log l. The plain fast version takes the full row's max; this differs
+    from it by the rounding of s - m at the earlier, lower maxima.
+    -> (o [B, S, D], lse [B, H, S])."""
+    B, S, D = q.shape
+
+    def heads(x):
+        return x.reshape(B, S, H, D // H).transpose(1, 2).float()
+
+    hq, hk, hv = heads((q * scale).to(q.dtype)), heads(k), heads(v)
+    m = torch.full((B, H, S, 1), float("-inf"), device=q.device)
+    l = torch.zeros((B, H, S, 1), device=q.device)
+    acc = torch.zeros_like(hq)
+    for k0 in range(0, S, tile):
+        s = hq @ hk[:, :, k0:k0 + tile].transpose(-1, -2)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        a = torch.exp(m - m_new)  # 0 at the first tile, where l and acc are 0
+        p = torch.exp((s - m_new).to(q.dtype)).float()
+        l = l * a + p.sum(-1, keepdim=True)
+        acc = acc * a + p @ hv[:, :, k0:k0 + tile]
+        m = m_new
+        del s, p
+    o = (acc / l).transpose(1, 2).reshape(B, S, D).to(q.dtype)
+    return o, (m + torch.log(l))[..., 0]
+
+
+def fast_readings(q, k, v, H, scale, outputs, slice_=8):
+    """Each kernel output (name -> (o, lse) at [B, S, D]) against the plain
+    fast version, the plain exact version and `pk_fwd_fast_online`, on
+    batch slices, and the plain fast version against the exact one:
+    max-abs, max-rel (over the reference's peak) and mean-abs of o, max-abs
+    of lse. -> {name: readings, "plain_fast_vs_exact": readings}."""
+    B = q.shape[0]
+    args = dict(scale=scale, num_heads=H)
+    acc = {}
+
+    def add(name, o, l, o_ref, l_ref, ref):
+        r = acc.setdefault(name, {}).setdefault(ref, dict.fromkeys(
+            ("o_abs", "o_peak", "o_sum", "n", "l_abs"), 0.0))
+        d = (o.float() - o_ref.float()).abs()
+        r["o_abs"] = max(r["o_abs"], d.max().item())
+        r["o_sum"] += d.sum().item()
+        r["n"] += d.numel()
+        r["o_peak"] = max(r["o_peak"], o_ref.float().abs().max().item())
+        r["l_abs"] = max(r["l_abs"], max_abs(l, l_ref))
+
+    for i in range(0, B, slice_):
+        part = [x[i:i + slice_] for x in (q, k, v)]
+        refs = {"plain_fast": fa.pk_fwd_plain(*part, fast_softmax=True, **args),
+                "plain_exact": fa.pk_fwd_plain(*part, **args),
+                "online": pk_fwd_fast_online(*part, H, scale)}
+        for name, (o, l) in outputs.items():
+            for ref, (o_ref, l_ref) in refs.items():
+                add(name, o[i:i + slice_], l[i:i + slice_], o_ref, l_ref, ref)
+        add("plain_fast", *refs["plain_fast"], *refs["plain_exact"], "plain_exact")
+        del refs
+    return {name: {ref: {"o_max_abs": r["o_abs"], "o_max_rel": r["o_abs"] / r["o_peak"],
+                         "o_mean_abs": r["o_sum"] / r["n"], "lse_max_abs": r["l_abs"]}
+                   for ref, r in by_ref.items()}
+            for name, by_ref in acc.items()}
+
+
+def fast_limits(got, plain):
+    """The fast softmax's limits on one kernel's readings (`fast_readings`),
+    `plain` the plain fast version's against the exact one: name -> held.
+    "factor" is FAST_ERR_FACTOR's limit; the others are the emulation's and
+    the side the kernel must sit on."""
+    return {"factor": got["plain_fast"]["o_max_rel"]
+            <= FAST_ERR_FACTOR * plain["plain_exact"]["o_max_rel"],
+            "online_lse": got["online"]["lse_max_abs"] <= TOL_FAST_LSE,
+            "online_o_mean": got["online"]["o_mean_abs"]
+            <= FAST_O_MEAN_FRACTION * plain["plain_exact"]["o_mean_abs"],
+            "closer_to_fast": got["plain_fast"]["o_mean_abs"]
+            < got["plain_exact"]["o_mean_abs"]}
+
+
+def fast_kernel_row(batch, slice_=8):
+    """pk_fwd's fast mode at [batch, 2305, 768] (12 heads) against its plain
+    version, the plain exact version and the emulation of its arithmetic,
+    held to `fast_limits`, which the per-row max kernel on the same inputs
+    must fail; the two exp forms' errors; then its time in turns with the
+    default (per-row max) kernel and SDPA's forward beside the bound."""
+    vc = get_config("b16").vision
+    S, D, H, scale = vc.num_patches + 1, vc.hidden_size, vc.num_heads, vc.head_dim**-0.5
+    g = torch.Generator(device="cuda").manual_seed(17 + batch)
+    q, k, v = (torch.randn(batch, S, D, generator=g, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    args = dict(scale=scale, num_heads=H)
+    outputs = {"fast": fa.pk_fwd(q, k, v, fast_softmax=True, **args),
+               "row_max": fa.pk_fwd(q, k, v, **args)}
+    check(all(torch.isfinite(x).all().item() for x in outputs["fast"]),
+          f"fast [{batch}, {S}, {D}]: non-finite kernel output")
+    got = fast_readings(q, k, v, H, scale, outputs, slice_)
+    plain = got.pop("plain_fast")
+    held = fast_limits(got["fast"], plain)
+    row_max_held = fast_limits(got["row_max"], plain)
+    plain_ms = sum(cuda_ms(lambda: fa.pk_fwd_plain(*(x[i:i + slice_] for x in (q, k, v)),
+                                                   fast_softmax=True, **args), 3)
+                   for i in range(0, batch, slice_))
+    fast = got["fast"]["plain_fast"]
+    row = {"shape": [batch, S, D], "softmax": "fast",
+           "o_max_abs": fast["o_max_abs"], "o_max_rel": fast["o_max_rel"],
+           "lse_max_abs": fast["lse_max_abs"],
+           "plain_fast_vs_exact_o_max_rel": plain["plain_exact"]["o_max_rel"],
+           "plain_fast_vs_exact_o_mean_abs": plain["plain_exact"]["o_mean_abs"],
+           "plain_fast_vs_exact_lse_max_abs": plain["plain_exact"]["lse_max_abs"],
+           "readings": got, "limits": {"fast_err_factor": FAST_ERR_FACTOR,
+                                       "tol_fast_lse": TOL_FAST_LSE,
+                                       "fast_o_mean_fraction": FAST_O_MEAN_FRACTION},
+           "held": held, "row_max_kernel_held": row_max_held,
+           "form_o_max_rel_vs_plain_fast": fast_form_errors(
+               *(x[:slice_] for x in (q, k, v)), H, scale)}
+    check(all(held.values()), f"fast [{batch}, {S}, {D}]: limits not held: {row}")
+    check(not any(v for name, v in row_max_held.items() if name != "factor"),
+          f"fast [{batch}, {S}, {D}]: the per-row max kernel passes a fast limit: {row}")
+    o_again, l_again = fa.pk_fwd(q, k, v, fast_softmax=True, **args)
+    row["repeat_bit_equal"] = (torch.equal(o_again, outputs["fast"][0])
+                               and torch.equal(l_again, outputs["fast"][1]))
+    check(row["repeat_bit_equal"], f"fast [{batch}, {S}, {D}]: two launches differ")
+    del o_again, l_again, outputs
+    # in turns: default, fast, fast, default
+    turns = {"default": [], "fast": []}
+    for name in ("default", "fast", "fast", "default"):
+        turns[name].append(cuda_ms(lambda: fa.pk_fwd(q, k, v, fast_softmax=name == "fast",
+                                                     **args), 20))
+    bound_ms, bound_by = fwd_bound(batch, S, D, H)
+    row.update(ms=float(np.mean(turns["fast"])), default_ms=float(np.mean(turns["default"])),
+               turns_ms=turns, plain_ms=plain_ms, library_ms=sdpa_ms(q, k, v, H, scale),
+               bound_ms=bound_ms, bound_by=bound_by)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return row
+
+
+def linear_q_row(m, k, n):
+    """linear_q on the card at [m, k] bf16 x a [n, k] fp32 master weight,
+    bit-equal to the same inputs' run on the CPU, timed beside bf16 cuBLAS
+    (F.linear with the weight cast, as Linear runs it) and torch._int_mm
+    alone, with the int8 bound."""
+    g = torch.Generator().manual_seed(m + k + n)
+    x = (torch.randn(m, k, generator=g) * torch.rand(m, 1, generator=g) * 4).to(torch.bfloat16)
+    w = torch.randn(n, k, generator=g) * k**-0.5
+    b = torch.randn(n, generator=g) * 0.1
+    want = tquant.linear_q(x, w, b)
+    xc, wc, bc = x.cuda(), w.cuda(), b.cuda()
+    got = tquant.linear_q(xc, wc, bc)
+    torch.cuda.synchronize()
+    bit_equal = torch.equal(got.cpu(), want)
+    if not bit_equal:  # which step differs: the scales, the int8 operands, the product
+        xs = [tquant._scale(t.float().abs().amax(-1, keepdim=True)) for t in (x, xc)]
+        ws = [tquant._scale(t.abs().amax(-1)) for t in (w, wc)]
+        xq = [tquant._quantize(t, s_) for t, s_ in zip((x, xc), xs)]
+        wq = [tquant._quantize(t, s_[:, None]) for t, s_ in zip((w, wc), ws)]
+        acc = [tquant.int8_mm(a, b_.t()) for a, b_ in zip(xq, wq)]
+        emit("linear_q_diff", x_scale=torch.equal(xs[0], xs[1].cpu()),
+             w_scale=torch.equal(ws[0], ws[1].cpu()), xq=torch.equal(xq[0], xq[1].cpu()),
+             wq=torch.equal(wq[0], wq[1].cpu()), acc=torch.equal(acc[0], acc[1].cpu()),
+             y_max_abs=max_abs(got.cpu(), want))
+    check(bit_equal, f"linear_q [{m}, {k}] x [{k}, {n}] on the card differs from the CPU")
+    del got, want
+    xq = torch.randint(-127, 128, (m, k), dtype=torch.int8, device="cuda")
+    wq = torch.randint(-127, 128, (n, k), dtype=torch.int8, device="cuda")
+    wb = wc.to(torch.bfloat16)
+    t_bound = max(2 * m * k * n / PEAK_INT8_OPS, (m * k * 2 + n * k * 4 + m * n * 2) / PEAK_BYTES)
+    row = {"shape": [m, k, n], "bit_equal_to_cpu": bit_equal,
+           "ms": cuda_ms(lambda: tquant.linear_q(xc, wc, bc), 10),
+           "int_mm_ms": cuda_ms(lambda: torch._int_mm(xq, wq.t()), 10),
+           "bf16_cublas_ms": cuda_ms(lambda: F.linear(xc, wc.to(torch.bfloat16), bc.to(
+               torch.bfloat16)), 10),
+           "bf16_matmul_only_ms": cuda_ms(lambda: F.linear(xc, wb), 10),
+           "bound_ms": t_bound * 1e3,
+           "bound_by": "operations" if 2 * m * k * n / PEAK_INT8_OPS >= t_bound else "bytes"}
+    del xc, wc, bc, xq, wq, wb
+    torch.cuda.empty_cache()
+    return row
+
+
+def served_switch(params, cfg, images, env, bucket=8):
+    """DetectorServer at `bucket` under the switches in env: its rows
+    bit-equal to a direct forward + NMS of the same batch -> (record, the
+    direct call's launches)."""
+    S = cfg.vision.image_size
+    with switches(**env):
+        reset_counts()
+        srv = DetectorServer(params, cfg, buckets=(bucket,), device="cuda", autostart=False)
+        futs = [srv.submit(im) for im in images[:bucket]]
+        srv.start()
+        results = [f.result() for f in futs]
+        torch.cuda.synchronize()
+        launches = read_counts()
+        srv.close()
+        reset_counts()
+        flat = torch.from_numpy(_flatten_bucket(list(images[:bucket]), bucket, S)).cuda()
+        with torch.inference_mode():
+            boxes, sims = owlvit.forward_train(params, srv.cfg,
+                                               normalize_image(flat.reshape(bucket, S, S, 3)))
+            packed = nms_ops.pack_detections(nms_ops.postprocess(
+                boxes, sims, **srv._thresholds)).cpu().numpy()
+            torch.cuda.synchronize()
+        direct = read_counts()
+    for i in range(bucket):
+        row = srv._unpack_row(packed[i], (S, S))
+        for key in ("boxes", "scores", "classes"):
+            check(np.array_equal(row[key], results[i][key]),
+                  f"served {env} image {i} {key} differs from the direct call")
+    return {"env": env, "rows_bit_equal": True, "launches": launches,
+            "detections": [len(r["scores"]) for r in results]}, direct
+
+
+def pruned_matcher_checks(matching):
+    """The pruned assignment on the card against `hungarian_pruned` through
+    the plain `hungarian` on the CPU: the train step's own costs, then
+    tie-heavy and signed-zero costs at [32, 16, 2304] and [32, 16, 576]."""
+    out = {"train_steps": 0}
+    for cost, mask, assigned, _, _ in matching["assign"]:
+        want = matcher.hungarian_pruned(cost.cpu(), mask.cpu()).long()
+        check(torch.equal(assigned.cpu(), want), "pruned assignment differs from the host's")
+        out["train_steps"] += 1
+    rng = np.random.default_rng(23)
+    for B, G, P in ((32, 16, 2304), (32, 16, 576)):
+        for kind, make in (("ties", tie_costs), ("signed_zeros", signed_zero_costs)):
+            cost, mask = (torch.from_numpy(x) for x in make(rng, B, G, P))
+            got = matcher.hungarian_pruned(cost.cuda(), mask.cuda()).cpu()
+            check(torch.equal(got, matcher.hungarian_pruned(cost, mask)),
+                  f"pruned {kind} [{B}, {G}, {P}] differs from the host's")
+            out[f"{kind}_{B}x{G}x{P}"] = "equal"
+    return out
+
+
+def phase_prefix_switches(batch=32, steps=3, n_classes=80, max_gt=64, prune_gt=16):
+    """The JAX package's last opt-in paths on the card, B/16 bf16, random
+    weights (seed 0): (a) pk_fwd's fast mode alone at [32, 2305, 768] and
+    [8, 2305, 768]; (b) linear_q at the prefix's two product shapes; (c)
+    the uncached train step (batch 32, max_gt 64) under the default,
+    OWLVIT_FAST_SOFTMAX=1 and OWLVIT_QUANT_BACKBONE=1, 3 steps each in
+    turns; (d) the cached path's prefix fill under each, pools against the
+    default's; (e) DetectorServer at bucket 8 under OWLVIT_QUANT_BACKBONE=1
+    and under OWLVIT_STATIC_MAX=off with OWLVIT_FAST_SOFTMAX=1, rows
+    bit-equal to a direct call; (f) a train step at max_gt 16 under
+    OWLVIT_MATCH_PRUNE=1 and the pruned solver on tie-heavy and signed-zero
+    costs, against the host. Returns (the fast kernel's rows, the launches
+    of the paths driven)."""
+    total = dict.fromkeys(KERNELS, 0)
+    fast_rows = [fast_kernel_row(b) for b in FAST_SHAPES]
+    for row in fast_rows:
+        emit("prefix_switches_fast_kernel", **row)
+    for shape in LINEAR_Q_SHAPES:
+        emit("prefix_switches_linear_q", **linear_q_row(*shape))
+
+    L = get_config("b16").vision.num_layers
+    S = get_config("b16").vision.image_size
+    rng = np.random.default_rng(31)
+    trainer = b16_trainer(batch, max_gt, n_classes)
+    batches = [train_batch(rng, batch, max_gt, S, n_classes) for _ in range(steps)]
+    want = {"default": {"pk_fwd": L}, "fast": {"pk_fwd": 1, "pk_fwd_fast": L - 1},
+            "quant": {"pk_fwd": L}}
+    walls = {name: [] for name in PREFIX_SWITCHES}
+    terms = {name: [] for name in PREFIX_SWITCHES}
+    for i in range(steps):
+        order = list(PREFIX_SWITCHES) if i % 2 == 0 else list(PREFIX_SWITCHES)[::-1]
+        for name in order:
+            with switches(**PREFIX_SWITCHES[name]):
+                t, launches, wall, _, _ = counted_step(trainer, batches[i])
+            check(np.isfinite(t).all(), f"train step under {name}: terms {t}")
+            check(launches == {**dict.fromkeys(KERNELS, 0), **want[name], **pair(1),
+                               **matched(1)}, f"train step under {name}: {launches}")
+            total = {n: total[n] + launches[n] for n in KERNELS}
+            walls[name].append(wall)
+            terms[name].append(t.tolist())
+    emit("prefix_switches_train", batch=batch, max_gt=max_gt, steps=steps, step_wall_ms=walls,
+         img_per_s={n: batch * 1e3 / float(np.median(w)) for n, w in walls.items()},
+         terms=terms, fast_pk_fwd_launches_per_step=want["fast"]["pk_fwd_fast"])
+    del trainer
+    torch.cuda.empty_cache()
+
+    # (d) the cached path's prefix fill: one filled step under each switch
+    data = cached_data(rng, batch, max_gt, S, n_classes)
+    b = next(epoch_batches(data, batch, np.arange(batch), with_image=True))
+    pools = {}
+    for name, env in PREFIX_SWITCHES.items():
+        trainer = b16_trainer(batch, max_gt, n_classes, n_images=N_IMAGES,
+                              cache_backbone=True)
+        with switches(**env):
+            t, launches, wall, _, _ = counted_step(trainer, b)
+        check(np.isfinite(t).all(), f"cached fill under {name}: terms {t}")
+        fill = {"default": {"pk_fwd": L}, "fast": {"pk_fwd": 1, "pk_fwd_fast": L - 1},
+                "quant": {"pk_fwd": L}}[name]
+        check(launches == {**dict.fromkeys(KERNELS, 0), **fill, **pair(1), **matched(1)},
+              f"cached fill under {name}: {launches}")
+        total = {n: total[n] + launches[n] for n in KERNELS}
+        with torch.no_grad():
+            pools[name] = trainer.pool_gather(torch.from_numpy(data["indices"]).cuda()).clone()
+        del trainer
+        torch.cuda.empty_cache()
+    pool_rel = {name: max_rel(pools[name], pools["default"]) for name in ("fast", "quant")}
+    check(all(np.isfinite(v) and v > 0 for v in pool_rel.values()),
+          f"switched pools against the default: {pool_rel}")
+    emit("prefix_switches_fill", rows=batch, pool_max_rel_vs_default=pool_rel)
+    del pools
+
+    # (e) serving
+    cfg = get_config("b16", dtype="bfloat16")
+    params = owlvit.init(cfg, torch.Generator().manual_seed(0), num_queries=240).to("cuda")
+    images = np.random.default_rng(0).integers(0, 256, (8, S, S, 3), dtype=np.uint8)
+    served = {}
+    for name, env, per_batch in (
+            ("quant", {"OWLVIT_QUANT_BACKBONE": "1"}, {"pk_fwd": L}),
+            ("fast", {"OWLVIT_STATIC_MAX": "off", "OWLVIT_FAST_SOFTMAX": "1"},
+             {"pk_fwd_fast": L})):
+        rec, direct = served_switch(params, cfg, images, env)
+        # the warm-up batch and the served batch, then the direct call
+        check(rec["launches"] == {**dict.fromkeys(KERNELS, 0),
+                                  **{k: 2 * n for k, n in per_batch.items()}},
+              f"served {name}: {rec['launches']}")
+        check(direct == {**dict.fromkeys(KERNELS, 0), **per_batch},
+              f"direct {name}: {direct}")
+        total = {n: total[n] + rec["launches"][n] for n in KERNELS}
+        served[name] = rec
+    emit("prefix_switches_serve", bucket=8, **served)
+    del params
+    torch.cuda.empty_cache()
+
+    # (f) the pruned matcher
+    trainer = b16_trainer(batch, prune_gt, n_classes)
+    with switches(OWLVIT_MATCH_PRUNE="1"), recorded_matching() as matching:
+        t, launches, wall, _, _ = counted_step(trainer,
+                                               train_batch(rng, batch, prune_gt, S, n_classes))
+    check(np.isfinite(t).all(), f"pruned step: terms {t}")
+    check(launches == {**dict.fromkeys(KERNELS, 0), "pk_fwd": L, **pair(1), **matched(1)},
+          f"pruned step: {launches}")
+    total = {n: total[n] + launches[n] for n in KERNELS}
+    emit("prefix_switches_pruned_matcher", step_wall_ms=wall, **pruned_matcher_checks(matching))
+    del trainer, matching
+    torch.cuda.empty_cache()
+    return fast_rows, total
+
+
 def main():
     for name in SWITCHES:  # the default paths run with the switches off
         os.environ.pop(name, None)
@@ -3684,10 +4121,12 @@ def main():
     stage_launches = phase_stage()
     options_launches = phase_train_options()
     mesh_launches = phase_mesh()
+    fast_rows, switch_launches = phase_prefix_switches()
     launches = {k: sum(run[k] for run in (serve_launches, open_vocab_launches,
                                           mesh_serve_launches, train_launches, cached_launches,
                                           bench_launches, run_launches, export_launches,
-                                          stage_launches, options_launches, mesh_launches))
+                                          stage_launches, options_launches, mesh_launches,
+                                          switch_launches))
                 for k in KERNELS}
     # the drives of the transposed Function
     for k in ("transposed_fwd", "transposed_dq", "transposed_dkv"):
@@ -3698,6 +4137,9 @@ def main():
     rows = {
         "pk_fwd": {"max_abs_err": max(r["o_max_abs"] for r in served), **{
             k: fwd[k] for k in keys}},
+        # at the train step's prefix shape [32, 2305, 768]
+        "pk_fwd_fast": {"max_abs_err": max(r["o_max_abs"] for r in fast_rows), **{
+            k: fast_rows[0][k] for k in keys}},
         "pk_bwd": {"max_abs_err": max(bwd[f"{n}_max_abs"] for n in ("dq", "dk", "dv")), **{
             k: bwd[k] for k in keys}},
         "pk_dq": {k: bwd["dq"][k] for k in ("max_abs_err", *keys)},

@@ -9,8 +9,21 @@
 // -1e30 bias row makes them. scale is applied to the q tile in the input
 // dtype (exact for hd = 64: scale = 2^-3). Accumulation is fp32; in bf16, p
 // is rounded to bf16 before the p.v product and the division by l is fp32.
-// Two softmax modes: the per-row running max (online softmax), or a fixed
-// shift C (exp(s - C), lse = C + log l, no max and no rescale).
+// Three softmax modes: the per-row running max (online softmax); a fixed
+// shift C (exp(s - C), lse = C + log l, no max and no rescale); and, in
+// bf16 only, the fast mode, the TPU kernel's fast_softmax branch (its
+// _pk_fwd_kernel, the `fast_softmax and v.dtype != float32` lines): the
+// running max as in the first mode, but the exp taken in bf16 on a bf16
+// argument, p = exp(bf16(s - m)) in bf16, and l the fp32 sum of that
+// rounded p. The exp is the SFU's fp32 ex2 of the rounded argument, p =
+// bf16(2^(bf16(s - m) log2(e))): the TPU branch's function up to
+// ex2.approx's last fp32 bits. (Sm_90's ex2.approx.ftz.bf16x2, two bf16
+// exps in one SFU instruction, ran 6% faster on an H100, but it rounds the
+// argument in the log2 domain and not its result to nearest: its lse sat
+// 4e-3 from the branch's function, five times the exact softmax's distance
+// from it. Both forms run slower than the per-row max, so the mode keeps
+// the branch's function.) The mode is for frozen layers only (no backward
+// recomputes this p).
 //
 // What bounds it: two products of 2*S*S*hd flops per (batch, head) against
 // 4*B*S*D*2 bytes of q, k, v and o in bf16: at B/16 (S = 2305) about 0.5
@@ -103,12 +116,25 @@ __device__ __forceinline__ void load_kv_tile(FwdSmem& sm, int stage,
 
 constexpr int kColTiles = kBk / 8;  // 8-key column tiles of a K/V tile's scores
 
+// The softmax modes (the C entry point's `softmax` argument)
+constexpr int kRowMax = 0;  // per-row running max
+constexpr int kShift = 1;   // fixed shift C
+constexpr int kFast = 2;    // bf16 only: running max, exp in bf16 (see above)
+
+// the two fp32 values of a bf16x2 word: low half, high half
+__device__ __forceinline__ float bf16_lo(uint32_t x) { return __uint_as_float(x << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t x) { return __uint_as_float(x & 0xffff0000u); }
+
 // The online softmax of key tile k0 in the score accumulators (rows r0 and
 // r0+8 of this thread, column tile j in s[j]): keys >= valid_len masked, p =
 // exp(s - shift) in place (one FMA and one ex2), the partial row sums l
-// updated. Per-row max mode: m moves to the new row max, l is rescaled, and
-// a0 / a1 return the factor o must be rescaled by.
-template <bool kStatic>
+// updated. Per-row max and fast modes: m moves to the new row max, l is
+// rescaled, and a0 / a1 return the factor o must be rescaled by. Fast mode:
+// each pair of a row's s - m is rounded to bf16 (one pack, two integer ops
+// to unpack), p = 2^(x log2(e)) (a multiply and an ex2 each) is rounded to
+// bf16 the same way, and l adds the rounded p, which pack_p packs again
+// exactly.
+template <int kMode>
 __device__ __forceinline__ void softmax_tile(float (&s)[kColTiles][4], int k0, int valid_len,
                                              int t4, float static_max, float& m0, float& m1,
                                              float& l0, float& l1, float& a0, float& a1) {
@@ -121,7 +147,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[kColTiles][4], int k0, i
   }
   // exp(s - shift) = 2^(s log2(e) - shift log2(e))
   float sh0, sh1;
-  if (kStatic) {
+  if (kMode == kShift) {
     sh0 = sh1 = static_max * kLog2e;
   } else {
     float mx0 = m0, mx1 = m1;
@@ -144,6 +170,22 @@ __device__ __forceinline__ void softmax_tile(float (&s)[kColTiles][4], int k0, i
     l1 *= a1;
     sh0 = mx0 * kLog2e;
     sh1 = mx1 * kLog2e;
+  }
+  if (kMode == kFast) {
+#pragma unroll
+    for (int j = 0; j < kColTiles; ++j) {  // masked: 2^-inf == 0
+      const uint32_t x0 = pack_bf16(s[j][0] - m0, s[j][1] - m0);
+      const uint32_t x1 = pack_bf16(s[j][2] - m1, s[j][3] - m1);
+      const uint32_t p0 = pack_bf16(ex2(bf16_lo(x0) * kLog2e), ex2(bf16_hi(x0) * kLog2e));
+      const uint32_t p1 = pack_bf16(ex2(bf16_lo(x1) * kLog2e), ex2(bf16_hi(x1) * kLog2e));
+      s[j][0] = bf16_lo(p0);
+      s[j][1] = bf16_hi(p0);
+      s[j][2] = bf16_lo(p1);
+      s[j][3] = bf16_hi(p1);
+      l0 += s[j][0] + s[j][1];
+      l1 += s[j][2] + s[j][3];
+    }
+    return;
   }
 #pragma unroll
   for (int j = 0; j < kColTiles; ++j) {
@@ -179,7 +221,11 @@ __device__ __forceinline__ void issue_pv(float (&acc)[kHd / 8][4],
 }
 
 // p rounded to bf16: the score C fragments of column tiles 2c, 2c+1 are
-// exactly the A fragment of 16-key chunk c.
+// exactly the A fragment of 16-key chunk c. In the fast mode p is bf16
+// already and the pack exact. (Keeping the packed p words as the A
+// fragment, with no unpack and no pack, made ptxas serialise every wgmma,
+// C7511, at 106 registers: tried as bits left in s and copied, and copied
+// through a byte permute.)
 __device__ __forceinline__ void pack_p(const float (&s)[kColTiles][4],
                                        uint32_t (&pa)[kColTiles / 2][4]) {
 #pragma unroll
@@ -191,7 +237,7 @@ __device__ __forceinline__ void pack_p(const float (&s)[kColTiles][4],
   }
 }
 
-template <bool kStatic>
+template <int kMode>
 __global__ void __launch_bounds__(kThreads, 2)
     pk_fwd_bf16(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
@@ -265,7 +311,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   issue_scores(s, qdesc, sw128_desc(sm.k[0]));
   wgmma_wait_n<0>();
   fence_operands(s);
-  softmax_tile<kStatic>(s, 0, valid_len, t4, static_max, m0, m1, l0, l1, a0, a1);
+  softmax_tile<kMode>(s, 0, valid_len, t4, static_max, m0, m1, l0, l1, a0, a1);
   pack_p(s, pa);
   for (int t = 1; t < n_tiles; ++t) {
     next_tile(t);
@@ -274,11 +320,11 @@ __global__ void __launch_bounds__(kThreads, 2)
     issue_pv(acc, pa, sw128_desc(sm.v[(t - 1) % kStages]));
     wgmma_wait_n<1>();  // the s product, committed first
     fence_operands(s);
-    softmax_tile<kStatic>(s, t * kBk, valid_len, t4, static_max, m0, m1, l0, l1, a0, a1);
+    softmax_tile<kMode>(s, t * kBk, valid_len, t4, static_max, m0, m1, l0, l1, a0, a1);
     wgmma_wait_n<0>();  // the p . v product: o and pa are free
     fence_operands(acc);
     fence_operands(pa);
-    if (!kStatic) {
+    if (kMode != kShift) {
 #pragma unroll
       for (int d = 0; d < kHd / 8; ++d) {
         acc[d][0] *= a0;
@@ -314,8 +360,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
   if (t4 == 0) {
     float* lrow = lse + ((size_t)b * H + h) * S;
-    if (row0 < S) lrow[row0] = (kStatic ? static_max : m0) + logf(l0);
-    if (row1 < S) lrow[row1] = (kStatic ? static_max : m1) + logf(l1);
+    if (row0 < S) lrow[row0] = (kMode == kShift ? static_max : m0) + logf(l0);
+    if (row1 < S) lrow[row1] = (kMode == kShift ? static_max : m1) + logf(l1);
   }
 }
 
@@ -415,18 +461,22 @@ __global__ void __launch_bounds__(kBqF)
 
 }  // namespace
 
-// C entry point, bound with ctypes. dtype: 0 = fp32, 1 = bf16. Launches on
-// `stream` and returns cudaGetLastError() (0 on success); never synchronises.
+// C entry point, bound with ctypes. dtype: 0 = fp32, 1 = bf16. softmax: 0 =
+// per-row max, 1 = fixed shift static_max, 2 = fast (bf16 only; the caller
+// resolves fp32 to 0, as the TPU kernel ignores its fast flag in fp32).
+// Launches on `stream` and returns cudaGetLastError() (0 on success); never
+// synchronises.
 extern "C" int owlvit_pk_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, int B, int S, int H, int hd,
-                             int valid_len, float scale, int use_static,
+                             int valid_len, float scale, int softmax,
                              float static_max, int dtype, void* stream) {
-  if (hd != kHd || B < 1 || S < 1 || H < 1 || valid_len < 1 || valid_len > S)
+  if (hd != kHd || B < 1 || S < 1 || H < 1 || valid_len < 1 || valid_len > S ||
+      softmax < kRowMax || softmax > kFast || (dtype == 0 && softmax == kFast))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     // the bf16 kernel's shared memory is above the 48 KB default: raise its
-    // limit once per device, for both softmax modes
+    // limit once per device, for every softmax mode
     constexpr int kMaxDevices = 64;
     static bool smem_set[kMaxDevices];
     int dev = 0;
@@ -434,7 +484,8 @@ extern "C" int owlvit_pk_fwd(const void* q, const void* k, const void* v,
     if (err != cudaSuccess) return static_cast<int>(err);
     if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
     if (!smem_set[dev]) {
-      decltype(&pk_fwd_bf16<true>) kerns[] = {pk_fwd_bf16<true>, pk_fwd_bf16<false>};
+      decltype(&pk_fwd_bf16<kRowMax>) kerns[] = {pk_fwd_bf16<kRowMax>, pk_fwd_bf16<kShift>,
+                                                  pk_fwd_bf16<kFast>};
       for (auto kern : kerns) {
         err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    kSmemBytes);
@@ -446,14 +497,16 @@ extern "C" int owlvit_pk_fwd(const void* q, const void* k, const void* v,
       smem_set[dev] = true;
     }
     const dim3 grid((S + kBq - 1) / kBq, H, B);
-    auto kern = use_static ? pk_fwd_bf16<true> : pk_fwd_bf16<false>;
+    auto kern = softmax == kShift ? pk_fwd_bf16<kShift>
+                : softmax == kFast  ? pk_fwd_bf16<kFast>
+                                    : pk_fwd_bf16<kRowMax>;
     kern<<<grid, kThreads, kSmemBytes, st>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
         static_cast<float*>(lse), S, H, valid_len, scale, static_max);
   } else if (dtype == 0) {
     const dim3 grid((S + kBqF - 1) / kBqF, H, B);
-    auto kern = use_static ? pk_fwd_f32<true> : pk_fwd_f32<false>;
+    auto kern = softmax == kShift ? pk_fwd_f32<true> : pk_fwd_f32<false>;
     kern<<<grid, kBqF, 0, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o),

@@ -64,8 +64,8 @@ class OwlViTConfig:
     # version on any device.
     attention_impl: str = "auto"
     remat: bool = False  # recompute the trained encoder blocks in the backward
-    # int8 frozen prefix: not ported; True (or OWLVIT_QUANT_BACKBONE=1)
-    # raises ValueError where the JAX package reads it (vit.forward_prefix)
+    # int8 frozen prefix (or OWLVIT_QUANT_BACKBONE=1): every projection of
+    # the frozen layers through ops/quant.py::linear_q (vit.forward_prefix)
     quant_backbone: bool = False
     # Only the last k vision layers may take gradients; None = no split.
     trainable_last_k: "int | None" = None

@@ -12,8 +12,11 @@ Attention takes a differentiable kernel path when autograd records the call
 routes them) and the forward-only kernel wrapper (`pk_fwd`) otherwise.
 `encoder` takes the fused add+LayerNorm branch under OWLVIT_FUSED_LN=1, as
 the JAX package's does, and with remat recomputes each block in the
-backward (the JAX package's jax.checkpoint around the block). Left out for
-now: the quantized and fast-softmax variants.
+backward (the JAX package's jax.checkpoint around the block). The frozen
+prefix's two switches reach every block through `encoder`, as the JAX
+package threads them: `quantized` runs every projection (q, k, v, out, fc1,
+fc2) through the int8 `linear_q`, and `fast_softmax` the forward-only
+attention kernel's fast mode.
 
 Tensor parallelism (parallel/sharding.py::shard_params, the JAX package's
 Megatron specs under GSPMD): `Attention` and `MLP` given the "model"
@@ -40,6 +43,7 @@ from owlvit_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_hybrid, flash_attention_packed,
     hybrid_supported, packed_supported, pk_fwd, pk_fwd_plain)
 from owlvit_tpu_torch.ops.fused_ln import add_ln
+from owlvit_tpu_torch.ops.quant import linear_q
 from owlvit_tpu_torch.parallel.sharding import all_reduce_sum_
 
 
@@ -73,7 +77,10 @@ class Linear(nn.Module):
         self.weight = nn.Parameter(normal((d_out, d_in), std, generator))
         self.bias = nn.Parameter(torch.zeros(d_out)) if bias else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, quantized: bool = False) -> torch.Tensor:
+        """quantized: the int8 `linear_q` (forward only: the frozen prefix)."""
+        if quantized:
+            return linear_q(x, self.weight, self.bias)
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return F.linear(x, self.weight.to(x.dtype), bias)
 
@@ -134,11 +141,16 @@ def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
     return _ReduceFromModel.apply(x, group)
 
 
-def _row_parallel(linear: "Linear", x: torch.Tensor, group, tp: int) -> torch.Tensor:
+def _row_parallel(linear: "Linear", x: torch.Tensor, group, tp: int,
+                  quantized: bool = False) -> torch.Tensor:
     """The row-parallel product: x [.., d_in / tp] @ this rank's weight
     slice, summed over the group, plus the replicated bias once. With one
     rank the sum is the identity and the bias joins the product, as the
-    single-device layer adds it."""
+    single-device layer adds it. quantized: `linear_q` over the group (its
+    scales over the whole d_in, as GSPMD reduces the JAX package's amax
+    across shards; forward only)."""
+    if quantized:
+        return linear_q(x, linear.weight, linear.bias, group=group)
     if tp == 1:
         return reduce_from_model(linear(x), group)
     y = reduce_from_model(F.linear(x, linear.weight.to(x.dtype)), group)
@@ -169,7 +181,8 @@ class Attention(nn.Module):
         self.tp_group, self.tp = group, tp
 
     def forward(self, x: torch.Tensor, *, impl: str = "auto",
-                static_max: Optional[float] = None,
+                static_max: Optional[float] = None, fast_softmax: bool = False,
+                quantized: bool = False,
                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         """impl "xla": the plain version on any device, under PyTorch's own
         autograd; otherwise the kernels (CUDA kernels on CUDA tensors, plain
@@ -182,42 +195,47 @@ class Attention(nn.Module):
         `hybrid_supported`, else the transposed `flash_attention`; a call it
         does not record takes `pk_fwd`. The fixed shift (static_max) is for
         forward-only calls and raises on a recorded one, as the JAX package
-        keeps it out of every grad graph. The packed backward's mode is
-        `pk_bwd_mode`'s. All S tokens are real: the token axis is never
-        padded."""
+        keeps it out of every grad graph. fast_softmax: the kernels' fast
+        mode where the JAX package's packed and hybrid kernels take it
+        (`hybrid_supported`; the transposed and plain paths ignore it, as
+        its transposed and XLA paths do), NotImplementedError on a recorded
+        call. quantized: every projection through `linear_q`, on every
+        path. The packed backward's mode is `pk_bwd_mode`'s. All S tokens
+        are real: the token axis is never padded."""
         if self.tp_group is not None:
             x = copy_to_model(x, self.tp_group)
-        q, k, v = self.q(x), self.k(x), self.v(x)
+        q, k, v = self.q(x, quantized), self.k(x, quantized), self.v(x, quantized)
         # the local heads' width: D, or D / tp under tensor parallelism
         B, S, D = q.shape
         H = self.num_heads
         scale = (D // H) ** -0.5
         if bias is not None:
-            return self._out(_biased_attention(q, k, v, H, scale, bias))
+            return self._out(_biased_attention(q, k, v, H, scale, bias), quantized)
         recorded = torch.is_grad_enabled() and q.requires_grad
         if recorded and static_max is not None:
             raise ValueError("static_max (the fixed-shift softmax) is for "
                              "forward-only calls; this call records a gradient")
+        fast = fast_softmax and hybrid_supported(H, D // H, D)
         if impl == "xla":
             o, _ = pk_fwd_plain(q, k, v, scale=scale, num_heads=self.num_heads,
                                 static_max=static_max)
         elif recorded and packed_supported(H, D // H, D):
-            o = flash_attention_packed(q, k, v, scale=scale, num_heads=H)
+            o = flash_attention_packed(q, k, v, scale=scale, num_heads=H, fast_softmax=fast)
         elif recorded and hybrid_supported(H, D // H, D):
-            o = flash_attention_hybrid(q, k, v, scale=scale, num_heads=H)
+            o = flash_attention_hybrid(q, k, v, scale=scale, num_heads=H, fast_softmax=fast)
         elif recorded:
             heads = (B, S, H, D // H)
             o = flash_attention(q.view(heads), k.view(heads), v.view(heads),
                                 scale=scale).reshape(B, S, D)
         else:
             o, _ = pk_fwd(q, k, v, scale=scale, num_heads=self.num_heads,
-                          static_max=static_max)
-        return self._out(o)
+                          static_max=static_max, fast_softmax=fast)
+        return self._out(o, quantized)
 
-    def _out(self, o: torch.Tensor) -> torch.Tensor:
+    def _out(self, o: torch.Tensor, quantized: bool = False) -> torch.Tensor:
         if self.tp_group is None:
-            return self.out(o)
-        return _row_parallel(self.out, o, self.tp_group, self.tp)
+            return self.out(o, quantized)
+        return _row_parallel(self.out, o, self.tp_group, self.tp, quantized)
 
 
 def _biased_attention(q, k, v, num_heads: int, scale: float,
@@ -247,11 +265,11 @@ class MLP(nn.Module):
             raise ValueError("this MLP is tensor-parallel already")
         self.tp_group, self.tp = group, tp
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, quantized: bool = False) -> torch.Tensor:
         if self.tp_group is None:
-            return self.fc2(quick_gelu(self.fc1(x)))
-        h = quick_gelu(self.fc1(copy_to_model(x, self.tp_group)))
-        return _row_parallel(self.fc2, h, self.tp_group, self.tp)
+            return self.fc2(quick_gelu(self.fc1(x, quantized)), quantized)
+        h = quick_gelu(self.fc1(copy_to_model(x, self.tp_group), quantized))
+        return _row_parallel(self.fc2, h, self.tp_group, self.tp, quantized)
 
 
 class EncoderBlock(nn.Module):
@@ -266,10 +284,12 @@ class EncoderBlock(nn.Module):
         self.mlp = MLP(dim, hidden, generator=generator)
 
     def forward(self, x: torch.Tensor, *, impl: str = "auto",
-                static_max: Optional[float] = None,
+                static_max: Optional[float] = None, fast_softmax: bool = False,
+                quantized: bool = False,
                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x), impl=impl, static_max=static_max, bias=bias)
-        return x + self.mlp(self.ln2(x))
+        x = x + self.attn(self.ln1(x), impl=impl, static_max=static_max,
+                          fast_softmax=fast_softmax, quantized=quantized, bias=bias)
+        return x + self.mlp(self.ln2(x), quantized)
 
 
 def fused_ln_enabled() -> bool:
@@ -279,16 +299,19 @@ def fused_ln_enabled() -> bool:
 
 
 def _fused_block(block: EncoderBlock, res: torch.Tensor, br: torch.Tensor, *,
-                 impl: str, static_max: Optional[float]):
+                 impl: str, static_max: Optional[float], fast_softmax: bool,
+                 quantized: bool):
     """One block on the pending (res, branch) pair -> the next pair."""
     xi, y1 = add_ln(res, br, block.ln1)
-    a = block.attn(y1, impl=impl, static_max=static_max)
+    a = block.attn(y1, impl=impl, static_max=static_max, fast_softmax=fast_softmax,
+                   quantized=quantized)
     res, y2 = add_ln(xi, a, block.ln2)
-    return res, block.mlp(y2)
+    return res, block.mlp(y2, quantized)
 
 
 def encoder(blocks, x: torch.Tensor, *, impl: str = "auto",
-            static_max: Optional[float] = None, remat: bool = False) -> torch.Tensor:
+            static_max: Optional[float] = None, remat: bool = False,
+            fast_softmax: bool = False, quantized: bool = False) -> torch.Tensor:
     """Run a sequence of EncoderBlocks in order.
 
     With a kernel impl (not "xla") and OWLVIT_FUSED_LN=1, the residual
@@ -308,7 +331,10 @@ def encoder(blocks, x: torch.Tensor, *, impl: str = "auto",
     runs it again in the backward, the kernels' autograd Functions
     included (`pk_fwd`, and `add_ln_fwd` in the fused branch, launch twice;
     the backward reads the recomputed o and lse). The same function, bit
-    for bit: the forward kernels are deterministic."""
+    for bit: the forward kernels are deterministic.
+
+    fast_softmax and quantized: the frozen prefix's switches
+    (vit.forward_prefix), passed to every block's `Attention` and `MLP`."""
     remat = remat and torch.is_grad_enabled()
 
     def run(fn, *args):
@@ -316,12 +342,13 @@ def encoder(blocks, x: torch.Tensor, *, impl: str = "auto",
             return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
         return fn(*args)
 
+    opts = dict(impl=impl, static_max=static_max, fast_softmax=fast_softmax,
+                quantized=quantized)
     if impl != "xla" and fused_ln_enabled():
         res, br = x, torch.zeros_like(x)
         for block in blocks:
-            res, br = run(functools.partial(_fused_block, block, impl=impl,
-                                            static_max=static_max), res, br)
+            res, br = run(functools.partial(_fused_block, block, **opts), res, br)
         return res + br
     for block in blocks:
-        x = run(functools.partial(block, impl=impl, static_max=static_max), x)
+        x = run(functools.partial(block, **opts), x)
     return x

@@ -66,38 +66,26 @@ def _embed_tokens(params: ViT, cfg: VisionConfig, pixel_values, dtype):
     return params.pre_ln(x)
 
 
-def _refuse_unported_switches(quant_backbone: bool = False) -> None:
-    """The JAX package's frozen prefix reads OWLVIT_FAST_SOFTMAX=1 (its
-    flash kernels' softmax in the input dtype) and OWLVIT_QUANT_BACKBONE=1
-    or OwlViTConfig.quant_backbone (int8 frozen layers). Each changes the
-    function computed; the port runs neither, so it refuses them rather
-    than compute the bf16 function under their name."""
-    if os.environ.get("OWLVIT_FAST_SOFTMAX", "0") == "1":
-        raise ValueError("OWLVIT_FAST_SOFTMAX=1 (the frozen prefix's input-dtype softmax): "
-                         "the port does not run it; unset it")
-    if quant_backbone or os.environ.get("OWLVIT_QUANT_BACKBONE") == "1":
-        switch = ("OwlViTConfig.quant_backbone" if quant_backbone
-                  else "OWLVIT_QUANT_BACKBONE=1")
-        raise ValueError(f"{switch} (the int8 frozen prefix): the port does not run it; "
-                         f"turn it off")
-
-
 def forward_prefix(params: ViT, cfg: VisionConfig, pixel_values, *,
                    dtype=torch.float32, attention_impl: str = "auto",
                    trainable_last_k: int, static_softmax: bool = False,
                    quant_backbone: bool = False):
     """Embeddings + the frozen layers[0 : L-k], under no_grad (the JAX
-    package's stop_gradient). The fixed-shift softmax is allowed here only:
-    these layers never take a gradient. Where the JAX package reads its
-    fast-softmax and int8 switches, the port refuses them
-    (`_refuse_unported_switches`)."""
-    _refuse_unported_switches(quant_backbone)
+    package's stop_gradient). These layers never take a gradient, so three
+    forward-only variants are allowed here, read as the JAX package reads
+    them: the fixed-shift softmax (static_softmax, `resolve_static_max`),
+    and, at call time, OWLVIT_FAST_SOFTMAX=1 (the attention kernel's
+    softmax in the input dtype) and OWLVIT_QUANT_BACKBONE=1 or
+    quant_backbone (every projection through the int8 `linear_q`)."""
+    fast = os.environ.get("OWLVIT_FAST_SOFTMAX", "0") == "1"
+    quant = quant_backbone or os.environ.get("OWLVIT_QUANT_BACKBONE") == "1"
     with torch.no_grad():
         x = _embed_tokens(params, cfg, pixel_values, dtype)
         return encoder(
             params.layers[: cfg.num_layers - trainable_last_k], x,
             impl=attention_impl,
             static_max=resolve_static_max(dtype, static_softmax),
+            fast_softmax=fast, quantized=quant,
         )
 
 

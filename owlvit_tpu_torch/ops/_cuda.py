@@ -37,7 +37,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> argument types (pointers and the stream as c_void_p, so
 # that ctypes does not cut them to 32 bits)
 _SIGNATURES = {
-    # q k v o lse | B S H hd valid_len | scale use_static static_max dtype stream
+    # q k v o lse | B S H hd valid_len | scale softmax static_max dtype stream
+    # (softmax: 0 per-row max, 1 fixed shift, 2 fast)
     "owlvit_pk_fwd": [_P] * 5 + [_I] * 5 + [_F, _I, _F, _I, _P],
     # q k v o lse do delta dq dk dv | B S H hd valid_len | scale dtype stream
     "owlvit_pk_bwd": [_P] * 10 + [_I] * 5 + [_F, _I, _P],

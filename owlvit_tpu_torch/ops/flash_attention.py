@@ -2,9 +2,10 @@
 launch counters and the autograd Functions.
 
 Counterpart of owlvit_tpu/ops/flash_attention.py (`_pk_fwd`,
-`_pk_fwd_kernel`, `_pk_bwd` with `_pk_fused_bwd_kernel`, `_pk_dq_kernel`
-and `_pk_dkv_kernel`, `_pk_bwd_mode`, `_flash_packed`,
-`flash_attention_packed`, `_static_max_env`). q/k/v stay in the packed
+`_pk_fwd_kernel` with its fast_softmax branch, `_pk_bwd` with
+`_pk_fused_bwd_kernel`, `_pk_dq_kernel` and `_pk_dkv_kernel`, `_pk_bwd_mode`,
+`_flash_packed`, `flash_attention_packed`, `_check_differentiable`,
+`_static_max_env`). q/k/v stay in the packed
 [B, S, D] layout (head h = columns h*hd:(h+1)*hd); the forward returns
 o [B, S, D] in the input dtype and lse [B, H, S] in fp32, the backward
 dq, dk, dv [B, S, D] in the input dtype.
@@ -29,7 +30,9 @@ layout with one head of 64 lanes, so `pk_fwd`, `pk_dq` and `pk_dkv` at
 num_heads=1 compute those TPU kernels' functions. Each wrapper counts a
 launch once, where it makes it: a one-head launch (the transposed layout; no
 shipped model has a one-head packed layer) in `.transposed_launches`, any
-other in `.launches`. `packed_supported` and `hybrid_supported` keep the
+other in `.launches`, and a launch in the fast softmax mode (bf16, for
+the frozen prefix under OWLVIT_FAST_SOFTMAX=1) in `pk_fwd.fast_launches`
+instead. `packed_supported` and `hybrid_supported` keep the
 JAX package's routing predicates, the OWLVIT_PACKED_FLASH=0 switch
 included, and `pk_bwd_mode` its backward mode (OWLVIT_PACKED_BWD).
 """
@@ -69,13 +72,32 @@ def resolve_static_max(dtype: torch.dtype, static_softmax: bool) -> Optional[flo
     return STATIC_MAX_DEFAULT if dtype != torch.float32 else None
 
 
+# the forward kernel's softmax modes (its C entry point's `softmax` argument)
+ROW_MAX, STATIC_SHIFT, FAST = 0, 1, 2
+
+
+def softmax_mode(dtype: torch.dtype, static_max: Optional[float],
+                 fast_softmax: bool) -> int:
+    """The forward's softmax, as the TPU kernel picks it: the fixed shift
+    when static_max is set (its branch comes first), else the fast mode for
+    a non-fp32 dtype under fast_softmax (fp32 ignores it), else the per-row
+    max."""
+    if static_max is not None:
+        return STATIC_SHIFT
+    return FAST if fast_softmax and dtype != torch.float32 else ROW_MAX
+
+
 def pk_fwd_plain(q, k, v, *, scale: float, num_heads: int,
                  valid_len: Optional[int] = None,
-                 static_max: Optional[float] = None):
+                 static_max: Optional[float] = None,
+                 fast_softmax: bool = False):
     """Plain PyTorch version of the kernel, with the same rounding points:
     q scaled in the input dtype, fp32 scores and sums, p rounded to the
     input dtype before p.v, the division by l in fp32. Keys at index >=
-    valid_len get zero weight. Returns (o [B, S, D], lse [B, H, S])."""
+    valid_len get zero weight. In the fast mode (`softmax_mode`), as the
+    TPU kernel's fast_softmax branch: p = exp(s - m) with s - m rounded to
+    the input dtype and the exp taken (and rounded) in it, l the fp32 sum of
+    that p. Returns (o [B, S, D], lse [B, H, S])."""
     B, S, D = q.shape
     hd = D // num_heads
     valid = S if valid_len is None else int(valid_len)
@@ -88,9 +110,14 @@ def pk_fwd_plain(q, k, v, *, scale: float, num_heads: int,
     s[..., valid:] = float("-inf")
     shift = (s.amax(dim=-1, keepdim=True) if static_max is None
              else torch.full_like(s[..., :1], static_max))
-    p = torch.exp(s - shift)
-    l = p.sum(dim=-1, keepdim=True)
-    o = (p.to(q.dtype).float() @ heads(v)) / l
+    if softmax_mode(q.dtype, static_max, fast_softmax) == FAST:
+        p = torch.exp((s - shift).to(q.dtype)).float()
+        l = p.sum(dim=-1, keepdim=True)
+        o = (p @ heads(v)) / l
+    else:
+        p = torch.exp(s - shift)
+        l = p.sum(dim=-1, keepdim=True)
+        o = (p.to(q.dtype).float() @ heads(v)) / l
     o = o.transpose(1, 2).reshape(B, S, D).to(q.dtype)
     return o, (shift + torch.log(l))[..., 0]
 
@@ -218,51 +245,60 @@ def _valid(valid_len: Optional[int], S: int) -> int:
 
 def pk_fwd(q, k, v, *, scale: float, num_heads: int,
            valid_len: Optional[int] = None,
-           static_max: Optional[float] = None):
+           static_max: Optional[float] = None,
+           fast_softmax: bool = False):
     """Packed attention forward -> (o [B, S, D], lse [B, H, S] fp32).
 
     static_max: None for the per-row max, or C for exp(s - C) with
-    lse = C + log l (see `resolve_static_max`). valid_len: keys at index >=
+    lse = C + log l (see `resolve_static_max`). fast_softmax: the exp in
+    the input dtype (`softmax_mode`: the fixed shift wins, fp32 ignores
+    it), for layers that take no gradient. valid_len: keys at index >=
     valid_len are masked (default S). It calls the custom op
     `owlvit::pk_fwd`, which torch.export traces as one node: CPU tensors run
     `pk_fwd_plain`; CUDA tensors run the kernel, and `pk_fwd.launches`
-    counts each launch (`pk_fwd.transposed_launches` at num_heads=1)."""
+    counts each launch (`pk_fwd.transposed_launches` at num_heads=1,
+    `pk_fwd.fast_launches` in the fast mode)."""
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"pk_fwd runs on cpu or cuda tensors, got {q.device}")
     return torch.ops.owlvit.pk_fwd(
         q, k, v, float(scale), int(num_heads), None if valid_len is None else int(valid_len),
-        None if static_max is None else float(static_max))
+        None if static_max is None else float(static_max), bool(fast_softmax))
 
 
-pk_fwd.launches = pk_fwd.transposed_launches = 0
+pk_fwd.launches = pk_fwd.transposed_launches = pk_fwd.fast_launches = 0
 
 
 @torch.library.custom_op("owlvit::pk_fwd", mutates_args=())
 def _pk_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
                num_heads: int, valid_len: Optional[int],
-               static_max: Optional[float]) -> tuple[torch.Tensor, torch.Tensor]:
+               static_max: Optional[float],
+               fast_softmax: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """`pk_fwd`'s implementation: the plain version on the CPU, the kernel
     (counted) on the card."""
     if q.device.type == "cpu":
         o, lse = pk_fwd_plain(q, k, v, scale=scale, num_heads=num_heads,
-                              valid_len=valid_len, static_max=static_max)
+                              valid_len=valid_len, static_max=static_max,
+                              fast_softmax=fast_softmax)
         return o, lse.contiguous()
     B, S, D = _check_cuda_operands("pk_fwd", num_heads, q=q, k=k, v=v)
     valid = _valid(valid_len, S)
+    mode = softmax_mode(q.dtype, static_max, fast_softmax)
     o = torch.empty_like(q)
     lse = torch.empty((B, num_heads, S), dtype=torch.float32, device=q.device)
     launch("owlvit_pk_fwd", q.device,
            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-           lse.data_ptr(), B, S, num_heads, HEAD_DIM, valid, float(scale),
-           int(static_max is not None),
+           lse.data_ptr(), B, S, num_heads, HEAD_DIM, valid, float(scale), mode,
            0.0 if static_max is None else float(static_max),
            DTYPE_CODE[q.dtype])
-    _count(pk_fwd, num_heads)
+    if mode == FAST:
+        pk_fwd.fast_launches += 1
+    else:
+        _count(pk_fwd, num_heads)
     return o, lse
 
 
 @_pk_fwd_op.register_fake
-def _pk_fwd_fake(q, k, v, scale, num_heads, valid_len, static_max):
+def _pk_fwd_fake(q, k, v, scale, num_heads, valid_len, static_max, fast_softmax=False):
     B, S, _ = q.shape
     return torch.empty_like(q), q.new_empty((B, num_heads, S), dtype=torch.float32)
 
@@ -445,11 +481,26 @@ class _FlashAttentionPacked(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
-def flash_attention_packed(q, k, v, *, scale: float, num_heads: int):
+def _check_differentiable(fast_softmax: bool) -> None:
+    """The JAX package's `_check_differentiable`: the fast softmax has no
+    backward that recomputes its p, so the autograd paths refuse it (a
+    forward-only call takes `pk_fwd`'s fast mode)."""
+    if fast_softmax:
+        raise NotImplementedError(
+            "fast_softmax=True has no consistent backward (the forward takes the "
+            "softmax weights in the input dtype; the backward recomputes them in "
+            "fp32). It is only for layers that take no gradient (the frozen "
+            "prefix, through pk_fwd); pass fast_softmax=False on differentiated calls.")
+
+
+def flash_attention_packed(q, k, v, *, scale: float, num_heads: int,
+                           fast_softmax: bool = False):
     """Differentiable packed attention over all S tokens ([B, S, D] in and
     out): the kernels on CUDA tensors, the plain versions on CPU tensors;
     the backward as `pk_bwd_mode` resolves it. The fixed-shift softmax has
-    no place here: it is for forward-only calls."""
+    no place here: it is for forward-only calls. fast_softmax=True raises
+    NotImplementedError (`_check_differentiable`)."""
+    _check_differentiable(fast_softmax)
     return _FlashAttentionPacked.apply(q, k, v, float(scale), int(num_heads))
 
 
@@ -549,9 +600,12 @@ class _FlashAttentionHybrid(torch.autograd.Function):
         return (*(from3(g) for g in grads), None, None)
 
 
-def flash_attention_hybrid(q, k, v, *, scale: float, num_heads: int):
+def flash_attention_hybrid(q, k, v, *, scale: float, num_heads: int,
+                           fast_softmax: bool = False):
     """Differentiable packed attention ([B, S, D] in and out) whose forward
     is `pk_fwd` and whose backward relayouts q, k, v, o, do and lse to the
     transposed layout and runs the split pair (`pk_bwd_split`) at one head:
-    the path a recorded call takes under OWLVIT_PACKED_FLASH=0."""
+    the path a recorded call takes under OWLVIT_PACKED_FLASH=0.
+    fast_softmax as in `flash_attention_packed`."""
+    _check_differentiable(fast_softmax)
     return _FlashAttentionHybrid.apply(q, k, v, float(scale), int(num_heads))

@@ -1,5 +1,5 @@
 """Hungarian matching (counterpart of owlvit_tpu/ops/matcher.py: `hungarian`,
-`cost_matrix`, `match`).
+`hungarian_pruned`, `cost_matrix`, `match`).
 
 The DETR matching cost is computed on the predictions' device, batched to
 [B, G, P], and the assignment is solved there too, as the JAX package
@@ -13,12 +13,18 @@ patch's class on the card. Nothing is read back to the host.
 assignment equals the JAX one, ties included. Like the vmapped JAX solver,
 it runs the images of a batch in lockstep (Python loops once per Dijkstra
 step, not once per image). CPU tensors take it; on the card only the tests
-and chip_smoke.py call it, to hold the kernel to it. `hungarian_pruned`
-(off by default in the JAX package) is not ported.
+and chip_smoke.py call it, to hold the kernel to it.
+
+The JAX package's two matcher switches are read at call time by `assign`
+(and so by `match`): OWLVIT_MATCH_PRUNE=1 solves each image on the union
+of its rows' R cheapest columns (`hungarian_pruned`, the same assignment
+on every input the tests and chip_smoke.py try), and OWLVIT_MATCH_SKIP=0
+solves the padded rows too instead of skipping them.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
@@ -173,18 +179,72 @@ def jv_assign(cost: torch.Tensor, row_mask: torch.Tensor) -> torch.Tensor:
 jv_assign.launches = 0
 
 
+# a duplicate column of the pruned submatrix (the JAX package's _BIG)
+_BIG = 1e9
+
+
+def _total_order_key(x: torch.Tensor) -> torch.Tensor:
+    """int32 keys of float32 x that order as IEEE's total order (-0 before
+    +0), the order XLA's top_k compares in."""
+    bits = x.contiguous().view(torch.int32)
+    return bits ^ ((bits >> 31) & 0x7FFFFFFF)
+
+
+def hungarian_pruned(cost: torch.Tensor, row_mask: torch.Tensor) -> torch.Tensor:
+    """The JAX `hungarian_pruned`, batched: cost [B, R, C], row_mask [B, R]
+    -> col4row [B, R] int32 in the original columns, -1 for masked rows, on
+    cost's device with no host read.
+
+    Where R * R >= C, `jv_assign` on the whole matrix. Otherwise each row's
+    R cheapest columns, as `lax.top_k(-cost, R)` picks them (IEEE total
+    order, so -0 before +0; among equal values the lower index first: a
+    stable sort of the total-order keys), their union sorted ascending (R *
+    R columns, a repeat of a column set to _BIG so that no column is taken
+    twice), the submatrix [B, R, R * R] gathered and solved by `jv_assign`,
+    and its columns mapped back. Exact by the exchange argument of the JAX
+    docstring: an optimal assignment lies in that union."""
+    B, R, C = cost.shape
+    if R * R >= C:
+        return jv_assign(cost, row_mask)
+    cost = cost.detach().float()
+    order = torch.sort(_total_order_key(cost), dim=-1, stable=True).indices
+    cols = torch.sort(order[..., :R].reshape(B, R * R), dim=-1).values  # [B, R*R]
+    dup = torch.zeros_like(cols, dtype=torch.bool)
+    dup[:, 1:] = cols[:, 1:] == cols[:, :-1]  # keep the first copy of each column
+    sub = torch.gather(cost, 2, cols[:, None, :].expand(B, R, R * R))
+    sub = torch.where(dup[:, None, :], torch.full_like(sub, _BIG), sub)
+    sub_col = jv_assign(sub, row_mask).long()
+    picked = torch.gather(cols, 1, sub_col.clamp(min=0))
+    return torch.where(sub_col >= 0, picked, -1).to(torch.int32)
+
+
+def solve(cost: torch.Tensor, gt_mask: torch.Tensor) -> torch.Tensor:
+    """The assignment [B, R] int32 as the JAX `match` routes it, both
+    switches read at call time: padded rows skipped (row_mask = gt_mask)
+    unless OWLVIT_MATCH_SKIP=0 (every row solved); `hungarian_pruned` under
+    OWLVIT_MATCH_PRUNE=1, else `jv_assign` on all columns."""
+    mask = gt_mask.bool()
+    if os.environ.get("OWLVIT_MATCH_SKIP") == "0":
+        mask = torch.ones_like(mask)
+    if os.environ.get("OWLVIT_MATCH_PRUNE") == "1":
+        return hungarian_pruned(cost, mask)
+    return jv_assign(cost, mask)
+
+
 def assign(cost: torch.Tensor, gt_labels: torch.Tensor, gt_mask: torch.Tensor,
            n_classes: int):
     """The assignment of a `cost_matrix` output on its device -> (assigned
-    [B, G] int64, -1 for invalid GT; target_classes [B, P] int64, each
-    patch's matched label, background = n_classes). The labels go to their
-    patches by a scatter on the device (an invalid row writes a spare
-    column that is dropped), so nothing is read back. A valid row that the
-    kernel's safety stop left at -1 (inf or NaN costs) also writes the
-    spare column: its label is dropped, not scattered out of range."""
+    [B, G] int64, -1 for invalid GT; under OWLVIT_MATCH_SKIP=0 the column
+    an invalid row was solved to, as in the JAX package; target_classes [B,
+    P] int64, each patch's matched label, background = n_classes), solved
+    as `solve` routes it. The labels go to their patches by a scatter on
+    the device (an invalid row writes a spare column that is dropped), so
+    nothing is read back. A valid row that the kernel's safety stop left at
+    -1 (inf or NaN costs) also writes the spare column: its label is
+    dropped, not scattered out of range."""
     B, G, P = cost.shape
     mask = gt_mask.bool()
-    assigned = jv_assign(cost, mask).long()
+    assigned = solve(cost, mask).long()
     col = torch.where(mask & (assigned >= 0), assigned, P)
     target = torch.full((B, P + 1), n_classes, dtype=torch.long, device=cost.device)
     target.scatter_(1, col, torch.where(mask, gt_labels.long(), n_classes))

@@ -134,15 +134,26 @@ def _host(group) -> bool:
     return dist.get_backend(group) == "gloo"
 
 
-def all_reduce_sum_(t: torch.Tensor, group) -> torch.Tensor:
-    """Sum t (contiguous) over the group, in place; returns t."""
+def _all_reduce_(t: torch.Tensor, group, op) -> torch.Tensor:
+    """Reduce t (contiguous) over the group with `op`, in place; returns t."""
     if t.is_cuda and _host(group):
         h = t.cpu()
-        dist.all_reduce(h, group=group)
+        dist.all_reduce(h, op=op, group=group)
         t.copy_(h)
     else:
-        dist.all_reduce(t, group=group)
+        dist.all_reduce(t, op=op, group=group)
     return t
+
+
+def all_reduce_sum_(t: torch.Tensor, group) -> torch.Tensor:
+    """Sum t (contiguous) over the group, in place; returns t."""
+    return _all_reduce_(t, group, dist.ReduceOp.SUM)
+
+
+def all_reduce_max_(t: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise maximum of t (contiguous) over the group, in place;
+    returns t."""
+    return _all_reduce_(t, group, dist.ReduceOp.MAX)
 
 
 def all_gather(t: torch.Tensor, group) -> list:

@@ -153,8 +153,8 @@ class ModelConfig:
     remat: bool = False
     # The int8 frozen backbone is not a ModelConfig field (the JAX package
     # demoted it to an experiment: detections drifted 3.1x the bf16 noise
-    # floor). The port does not run it: OWLVIT_QUANT_BACKBONE=1 and
-    # OwlViTConfig.quant_backbone raise in vit.forward_prefix.
+    # floor). OWLVIT_QUANT_BACKBONE=1 and OwlViTConfig.quant_backbone turn
+    # it on in vit.forward_prefix, as in the JAX package.
     trainable_last_k: int = 1
     prompts_per_class: int = 3
     clip_vocab: Optional[str] = None  # vocab.json path (real CLIP BPE)

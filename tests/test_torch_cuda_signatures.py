@@ -86,3 +86,13 @@ def test_dkv_smem_query_is_bound():
     assert PROTOTYPES["owlvit_pk_dkv_smem_bytes"] == ("int", ["int qs"])
     assert _cuda._SIGNATURES["owlvit_pk_dkv_smem_bytes"] == [ctypes.c_int]
 
+
+
+def test_pk_fwd_takes_the_softmax_mode():
+    """The forward's entry point takes the softmax mode (0 per-row max, 1
+    fixed shift, 2 fast) as an int after the scale, where the wrapper
+    passes `softmax_mode`'s value, and the shift C after it as a float."""
+    params = PROTOTYPES["owlvit_pk_fwd"][1]
+    assert params[11].split()[-1] == "softmax" and params[12].split()[-1] == "static_max"
+    assert _cuda._SIGNATURES["owlvit_pk_fwd"][11] is ctypes.c_int
+    assert _cuda._SIGNATURES["owlvit_pk_fwd"][12] is ctypes.c_float

@@ -3,10 +3,10 @@
 OWLVIT_STATIC_MAX is read at call time by the port's `resolve_static_max`,
 as the JAX package's `_static_max_env` reads it (`off` or `dynamic` in any
 case: the per-row max; a number: that C; unset: C = 20 for non-fp32
-compute), and only where static_softmax is set. OWLVIT_FAST_SOFTMAX=1 and
-OWLVIT_QUANT_BACKBONE=1 (or OwlViTConfig.quant_backbone) change the frozen
-prefix's function in the JAX package; the port does not run them and raises
-ValueError where the JAX package reads them (the vision prefix).
+compute), and only where static_softmax is set. OWLVIT_FAST_SOFTMAX=1,
+OWLVIT_QUANT_BACKBONE=1 (or OwlViTConfig.quant_backbone) and the matcher's
+OWLVIT_MATCH_PRUNE=1 and OWLVIT_MATCH_SKIP=0 are held to the JAX package in
+tests/test_torch_prefix_switches.py.
 """
 
 import jax.numpy as jnp
@@ -77,25 +77,3 @@ def test_served_batch_reads_static_max(env, want_c, tiny_bf16, monkeypatch):
             want = nms_ops.pack_detections(
                 nms_ops.postprocess(boxes, sims, **thresholds)).reshape(2, -1)
         assert torch.equal(got, want)
-
-
-@pytest.mark.parametrize("switch", ["OWLVIT_FAST_SOFTMAX", "OWLVIT_QUANT_BACKBONE",
-                                    "quant_backbone"])
-def test_unported_switches_raise(switch, monkeypatch):
-    """Each of the three raises ValueError naming itself at the vision
-    prefix, where the JAX package reads it, rather than run the bf16
-    function under its name."""
-    monkeypatch.delenv("OWLVIT_FAST_SOFTMAX", raising=False)
-    monkeypatch.delenv("OWLVIT_QUANT_BACKBONE", raising=False)
-    cfg = get_config("tiny", trainable_last_k=1)
-    if switch == "quant_backbone":
-        cfg = cfg.replace(quant_backbone=True)
-    else:
-        monkeypatch.setenv(switch, "1")
-    model = owlvit.init(cfg, torch.Generator().manual_seed(0), num_queries=3 * N_CLASSES)
-    S = cfg.vision.image_size
-    pixels = torch.zeros((1, S, S, 3))
-    with pytest.raises(ValueError, match=switch):
-        owlvit.forward_train(model, cfg, pixels)
-    with pytest.raises(ValueError, match=switch):
-        owlvit.embed_prefix(model, cfg, pixels)

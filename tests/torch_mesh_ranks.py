@@ -1,5 +1,5 @@
 """Rank processes for the port's mesh tests (tests/test_torch_parallel.py,
-tests/test_torch_trainer_mesh.py).
+tests/test_torch_trainer_mesh.py, tests/test_torch_prefix_switches.py).
 
 `run_ranks(job, world, tmp, **kw)` spawns `world` processes with
 torch.multiprocessing; each joins a gloo process group through a file
@@ -137,6 +137,31 @@ def tensor_parallel(rank: int, batch: int = 4) -> dict:
             "scattered": local, "misaligned": misaligned}
 
 
+def quant_prefix_tp(rank: int, batch: int = 2) -> dict:
+    """The int8 frozen prefix (quant_backbone) of a 3-layer detector with 2
+    heads of 64 at tp=2 (mesh 1x2) against the same prefix on one device
+    in this process, and the unquantized prefix beside them."""
+    import dataclasses
+
+    from owlvit_tpu_torch.models import get_config, owlvit
+    from owlvit_tpu_torch.parallel import create_mesh, shard_params
+
+    cfg = get_config("tiny", trainable_last_k=1)
+    cfg = cfg.replace(vision=dataclasses.replace(cfg.vision, hidden_size=128, num_heads=2,
+                                                 num_layers=3, mlp_dim=256))
+    model = owlvit.init(cfg, torch.Generator().manual_seed(6), num_queries=6)
+    S = cfg.vision.image_size
+    pixels = torch.from_numpy(
+        np.random.default_rng(8).uniform(-1, 1, (batch, S, S, 3)).astype(np.float32))
+    quant = cfg.replace(quant_backbone=True)
+    with torch.no_grad():
+        one = owlvit.embed_prefix(model, quant, pixels)
+        plain = owlvit.embed_prefix(model, cfg, pixels)
+        shard_params(model, create_mesh(1, 2, device_type="cpu"))
+        tp = owlvit.embed_prefix(model, quant, pixels)
+    return {"one": one, "tp": tp, "plain": plain}
+
+
 def trainer_runs(rank: int, runs: dict) -> dict:
     """Each run of `runs` ({name: {"config": {data, training, model},
     "workdir": ...}}) as the CLI starts it: Trainer.from_config on the mesh
@@ -198,4 +223,4 @@ def _own_rows(trainer) -> np.ndarray:
 
 
 JOBS = {"mesh_layout": mesh_layout, "tensor_parallel": tensor_parallel,
-        "trainer_runs": trainer_runs}
+        "quant_prefix_tp": quant_prefix_tp, "trainer_runs": trainer_runs}

@@ -5,7 +5,12 @@ max), the served [8, 2305, 768] (fixed shift C = 20) and the transposed
 [384, 2305, 64] (one head, per-row max); then the train shape with
 valid_len 2304 (the one-key tile's cost, from the difference).
 
-Usage: python3 tools/torch_pk_fwd_profile.py [--out DIR] [--baseline CSRC ...]
+Usage: python3 tools/torch_pk_fwd_profile.py [--out DIR] [--fast] [--baseline CSRC ...]
+
+--fast: the softmax's fast mode (OWLVIT_FAST_SOFTMAX=1 in the frozen
+prefix) instead, at the train and served shapes (per-row max, exp in bf16),
+beside the default mode at the train shape, each checked against its own
+plain version.
 
 Prints one JSON line per phase:
   device   the card's name and power limit (nvidia-smi).
@@ -25,7 +30,8 @@ Prints one JSON line per phase:
            earlier commit's owlvit_tpu_torch/csrc unpacked by git archive,
            with the same C entry points; may be given more than once): per
            shape, the wrapper's time with that build and with this tree's,
-           in turns (baseline, tree, tree, baseline; 20 calls each).
+           in turns (baseline, tree, tree, baseline; 20 calls each), and
+           that build's o and lse against the plain version.
 With --out, the lines also go to DIR/pk_fwd_profile.jsonl.
 """
 
@@ -45,12 +51,18 @@ from owlvit_tpu_torch.ops import _cuda  # noqa: E402
 from owlvit_tpu_torch.ops import flash_attention as fa  # noqa: E402
 
 S, HD = 2305, 64
-# (name, sequences, heads, static_max, valid_len): the train step's forward,
-# a served batch of 8, the transposed layout at one head per sequence; then
-# the train shape with the last key masked, which drops the key tile that
-# holds one key (S = 2305 = 36*64 + 1): the difference is that tile's cost
-SHAPES = (("train", 32, 12, None, S), ("serve", 8, 12, fa.STATIC_MAX_DEFAULT, S),
-          ("transposed", 384, 1, None, S), ("train_valid_2304", 32, 12, None, S - 1))
+# (name, sequences, heads, static_max, valid_len, fast_softmax): the train
+# step's forward, a served batch of 8, the transposed layout at one head per
+# sequence; then the train shape with the last key masked, which drops the
+# key tile that holds one key (S = 2305 = 36*64 + 1): the difference is that
+# tile's cost
+SHAPES = (("train", 32, 12, None, S, False), ("serve", 8, 12, fa.STATIC_MAX_DEFAULT, S, False),
+          ("transposed", 384, 1, None, S, False),
+          ("train_valid_2304", 32, 12, None, S - 1, False))
+# --fast: the fast mode at the frozen prefix's train shape and at a served
+# batch under OWLVIT_STATIC_MAX=off, the default mode at the train shape
+FAST_SHAPES = (("train", 32, 12, None, S, False), ("train_fast", 32, 12, None, S, True),
+               ("serve_fast", 8, 12, None, S, True))
 PEAK_BF16_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 
 
@@ -144,6 +156,8 @@ def main():
     ap.add_argument("--out", default=None)
     ap.add_argument("--baseline", action="append", default=[],
                     help="directory of kernel sources to time this tree's against")
+    ap.add_argument("--fast", action="store_true",
+                    help="time the fast softmax mode (FAST_SHAPES) instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: this profile runs only on the GPU")
@@ -164,24 +178,30 @@ def main():
         emit("baseline_build", csrc=csrc, **build_report(lib_path))
         baselines.append((csrc, _cuda.bind(lib_path)))
 
-    for name, B, H, static, valid in SHAPES:
+    for name, B, H, static, valid, fast in FAST_SHAPES if args.fast else SHAPES:
         g = torch.Generator(device="cuda").manual_seed(B)
         q, k, v = (torch.randn(B, S, H * HD, generator=g, device="cuda").to(torch.bfloat16)
                    for _ in range(3))
-        kw = dict(scale=HD**-0.5, num_heads=H, static_max=static, valid_len=valid)
+        kw = dict(scale=HD**-0.5, num_heads=H, static_max=static, valid_len=valid,
+                  fast_softmax=fast)
 
         def tree():
             return fa.pk_fwd(q, k, v, **kw)
 
-        o, lse = tree()
         o_p, lse_p = fa.pk_fwd_plain(q[:4], k[:4], v[:4], **kw)
-        err = {"o_max_rel": ((o[:4].float() - o_p.float()).abs().max()
-                             / o_p.float().abs().max()).item(),
-               "lse_max_abs": (lse[:4] - lse_p).abs().max().item(),
-               "finite": bool(torch.isfinite(o).all().item() and torch.isfinite(lse).all().item())}
-        del o, lse, o_p, lse_p
+
+        def errors(run):
+            o, lse = run()
+            return {"o_max_rel": ((o[:4].float() - o_p.float()).abs().max()
+                                  / o_p.float().abs().max()).item(),
+                    "lse_max_abs": (lse[:4] - lse_p).abs().max().item(),
+                    "finite": bool(torch.isfinite(o).all().item()
+                                   and torch.isfinite(lse).all().item())}
+
+        err = errors(tree)
+        softmax = "fast" if fast else "dynamic" if static is None else f"C={static}"
         emit("shape", name=name, shape=[B, S, H * HD], heads=H, valid_len=valid,
-             softmax="dynamic" if static is None else f"C={static}", **err,
+             softmax=softmax, **err,
              ms=cuda_ms(tree), sdpa_fwd_ms=sdpa_fwd_ms(q, k, v, H, HD**-0.5),
              bound_ms=fwd_bound_ms(B, H), kernel_us_per_call=kernel_times(tree))
         for csrc, lib in baselines:
@@ -190,9 +210,10 @@ def main():
 
             turns = [cuda_ms(base), cuda_ms(tree), cuda_ms(tree), cuda_ms(base)]
             emit("baseline", name=name, shape=[B, S, H * HD], heads=H, csrc=csrc,
-                 baseline_ms=(turns[0] + turns[3]) / 2, tree_ms=(turns[1] + turns[2]) / 2,
-                 turns_ms=turns)
-        del q, k, v
+                 softmax=softmax, baseline_ms=(turns[0] + turns[3]) / 2,
+                 tree_ms=(turns[1] + turns[2]) / 2, turns_ms=turns,
+                 baseline_errors=errors(base))
+        del q, k, v, o_p, lse_p
         torch.cuda.empty_cache()
     if args.out:
         os.makedirs(args.out, exist_ok=True)
