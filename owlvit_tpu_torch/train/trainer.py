@@ -154,6 +154,7 @@ from owlvit_tpu_torch.parallel import mesh as mesh_lib
 from owlvit_tpu_torch.parallel import sharding
 from owlvit_tpu_torch.utils.config import Config, ModelConfig, TrainingConfig
 from owlvit_tpu_torch.utils.logging import JSONLLogger, LossAccumulator, ProgressFormatter
+from owlvit_tpu_torch.utils.profiling import phases, span
 
 from . import checkpoint as ckpt
 from .state import partition_params
@@ -324,6 +325,21 @@ def auto_pool_budget(device: torch.device) -> float:
     if device.type != "cuda":
         return AUTO_POOL_BYTES_CPU
     return torch.cuda.mem_get_info(device)[1] - AUTO_POOL_MARGIN_BYTES
+
+
+# The train step's phase spans, moved at its marks: mark -> (whether it
+# closes the innermost phase span, the span it opens). train.input opens
+# with the step; the cached path's "prefix", "scatter" and "gather" fall
+# inside train.forward.
+STEP_SPANS = {
+    "input": (True, "train.forward"),
+    "forward": (True, "train.loss"),
+    "cost": (False, "train.match"),
+    "match": (True, None),
+    "loss": (True, "train.backward"),
+    "backward": (True, "train.optimizer"),
+    "optimizer": (True, None),
+}
 
 
 def _tensor(x, device, dtype) -> torch.Tensor:
@@ -892,30 +908,34 @@ class Trainer:
         cached, a batch with rows to fill "prefix" and "scatter", a stored
         batch "gather", then "forward" (the tail and the heads); then
         "cost", "match" (the assignment and the label propagation, on the
-        device), "loss", "backward", "optimizer".
+        device), "loss", "backward", "optimizer". The step's spans
+        (utils/profiling: train.step, then train.input, train.forward,
+        train.loss holding train.match, train.backward, train.optimizer)
+        open and close at these marks (STEP_SPANS).
 
         On a mesh the batch is the global one, of which this rank keeps its
         rows, or with sharded=True this rank's rows already; the terms
         returned are the global batch's, the same on every rank. The terms
         are read back to the host once, at the end (the device epoch of
         training.stage_pixels reads them once an epoch instead)."""
-        mark = mark or (lambda name: None)
         dev = self.device
-        if self.mesh is not None and not sharded:
-            batch = sharding.shard_batch(batch, self.mesh)
-        labels = _tensor(batch["labels"], dev, torch.int64)
-        gt_boxes = _tensor(batch["boxes"], dev, torch.float32)
-        gt_mask = _tensor(batch["gt_mask"], dev, torch.bool)
-        flip = self._rank_flips(labels.shape[0]) if self.hflip else None
-        flip_dev = None if flip is None else torch.from_numpy(flip).to(dev)
-        image = acts = None
-        if self.act_store is None:
-            image = self._image(batch)
-            mark("input")
-        else:
-            acts = self._cached_acts(batch, mark, flip)
-        return self._step(labels, gt_boxes, gt_mask, flip_dev, mark,
-                          image=image, acts=acts).cpu().numpy()
+        with span("train.step", job=self.step), \
+                phases(mark, STEP_SPANS, "train.input") as mark:
+            if self.mesh is not None and not sharded:
+                batch = sharding.shard_batch(batch, self.mesh)
+            labels = _tensor(batch["labels"], dev, torch.int64)
+            gt_boxes = _tensor(batch["boxes"], dev, torch.float32)
+            gt_mask = _tensor(batch["gt_mask"], dev, torch.bool)
+            flip = self._rank_flips(labels.shape[0]) if self.hflip else None
+            flip_dev = None if flip is None else torch.from_numpy(flip).to(dev)
+            image = acts = None
+            if self.act_store is None:
+                image = self._image(batch)
+                mark("input")
+            else:
+                acts = self._cached_acts(batch, mark, flip)
+            return self._step(labels, gt_boxes, gt_mask, flip_dev, mark,
+                              image=image, acts=acts).cpu().numpy()
 
     def _rank_flips(self, B: int, step: Optional[int] = None) -> np.ndarray:
         """This rank's B flips of the global batch's (augment_hflip)."""
