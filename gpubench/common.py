@@ -7,6 +7,7 @@ Nothing here imports the program; the drivers do.
 
 from __future__ import annotations
 
+import importlib
 import json
 import math
 import os
@@ -32,27 +33,28 @@ def load_json(path: Path) -> dict:
         return json.load(f)
 
 
-def manifest() -> dict:
-    return load_json(ROOT / "BENCHMARK.json")
+def manifest(root: Path = ROOT) -> dict:
+    return load_json(root / "BENCHMARK.json")
 
 
-def cell(name: str) -> dict:
+def cell(name: str, root: Path = ROOT) -> dict:
     """The workload `name` with its configuration, traffic and limits
-    resolved from their own files."""
-    m = manifest()
+    resolved from their own files, in the checkout at `root`."""
+    m = manifest(root)
     by_name = {w["name"]: w for w in m["workloads"]}
     if name not in by_name:
         raise SystemExit(f"unknown workload {name!r}; have {sorted(by_name)}")
     w = by_name[name]
     conf = next(c for c in m["configs"] if c["name"] == w["config"])
+    bench = root / HERE.name
     return {
         "name": name,
         "chips": w["chips"],
         "config_name": w["config"],
-        "config": load_json(ROOT / conf["file"]),
+        "config": load_json(root / conf["file"]),
         "traffic_name": w["traffic"],
-        "traffic": load_json(HERE / "traffic" / f"{w['traffic']}.json"),
-        "limits": load_json(HERE / "limits" / f"{name}.json"),
+        "traffic": load_json(bench / "traffic" / f"{w['traffic']}.json"),
+        "limits": load_json(bench / "limits" / f"{name}.json"),
         "end_to_end": [e for e in m["end_to_end"] if name in e.get("workloads", [name])],
         "per_layer": [p for p in m["per_layer"] if name in p.get("workloads", [name])],
     }
@@ -71,51 +73,20 @@ def rng(seed: int, *tags: int) -> np.random.Generator:
 
 # ------------------------------------------------------------------ weights
 
-def vision_leaves(c: dict) -> list:
-    """(name, shape, init) of every parameter the detector's vision tower
-    and heads hold, in the names of the port's parameter tree. init: ("w",
-    std) normal, ("one", std) 1 + normal (LayerNorm scales)."""
-    D, M, T = c["hidden_size"], c["intermediate_size"], c["patch_size"]
-    P = (c["image_size"] // T) ** 2
-    proj, Q = c["projection_dim"], c["num_queries"]
-    small = ("w", 0.02)
-    out = [("vision.patch_embedding.weight", (D, T * T * 3), small),
-           ("vision.class_embedding", (D,), small),
-           ("vision.position_embedding", (P + 1, D), small)]
-
-    def ln(name):
-        out.extend([(f"{name}.weight", (D,), ("one", 0.02)), (f"{name}.bias", (D,), small)])
-
-    def lin(name, d_in, d_out):
-        out.extend([(f"{name}.weight", (d_out, d_in), ("w", d_in ** -0.5)),
-                    (f"{name}.bias", (d_out,), small)])
-
-    ln("vision.pre_ln")
-    for i in range(c["num_hidden_layers"]):
-        p = f"vision.layers.{i}"
-        ln(f"{p}.ln1")
-        for n in ("q", "k", "v", "out"):
-            lin(f"{p}.attn.{n}", D, D)
-        ln(f"{p}.ln2")
-        lin(f"{p}.mlp.fc1", D, M)
-        lin(f"{p}.mlp.fc2", M, D)
-    ln("vision.post_ln")
-    ln("merged_ln")
-    lin("box_head.dense0", D, D)
-    lin("box_head.dense1", D, D)
-    lin("box_head.dense2", D, 4)
-    lin("class_head.dense0", D, proj)
-    lin("class_head.logit_shift", D, 1)
-    lin("class_head.logit_scale", D, 1)
-    out.append(("queries", (Q, proj), small))
-    return out
+def reference(c: dict):
+    """The plain reference module that the configuration file `c` names
+    under "reference" (gpubench/reference/<name>.py; owlvit where it names
+    none). It exports its model class `Model` and `leaves(c)`, the
+    (name, shape, init) of every parameter the benchmark draws for it."""
+    return importlib.import_module(f"gpubench.reference.{c.get('reference', 'owlvit')}")
 
 
 def make_weights(c: dict, seed: int, device) -> dict:
-    """Every vision and head parameter, fp32 (the master type the port
-    keeps), drawn on `device` from the seed in one call and scaled leaf by
-    leaf. The same seed and device give the same weights."""
-    leaves = vision_leaves(c)
+    """Every parameter of the configuration's reference leaves, fp32 (the
+    master type the port keeps), drawn on `device` from the seed in one call
+    and scaled leaf by leaf, in the leaves' order. The same seed and device
+    give the same weights."""
+    leaves = reference(c).leaves(c)
     total = sum(math.prod(s) for _, s, _ in leaves)
     g = torch.Generator(device=device).manual_seed(subseed(seed, TAG_WEIGHTS))
     flat = torch.randn(total, generator=g, device=device)

@@ -61,14 +61,36 @@ class Cell:
         del self.srv
         program.free()
 
+    def _served(self) -> tuple:
+        """(the images the window served, in order; image -> the rows its
+        jobs served it)."""
+        served: dict = {}
+        for o, r in self.done:
+            for k in range(len(o)):
+                served.setdefault(int(o[k]), []).append(r[k])
+        return sorted(served), served
+
     def _sample(self, n: int) -> list:
+        """n distinct images of those the window served, drawn from the
+        seed, each with its row from one of the jobs that served it, drawn
+        from the seed too: which images are compared does not depend on how
+        many jobs the window fit."""
+        images, served = self._served()
         g = common.rng(self.seed, common.TAG_SAMPLE)
-        pairs = [(o[k], r[k]) for o, r in self.done for k in range(len(o))]
-        return [pairs[i] for i in sorted(g.choice(len(pairs), min(n, len(pairs)), replace=False))]
+        pick = sorted(g.choice(len(images), min(n, len(images)), replace=False))
+        return [(images[i], served[images[i]][g.integers(len(served[images[i]]))])
+                for i in pick]
+
+    def _every(self) -> list:
+        """Every image the window served, each with its row from one of the
+        jobs that served it, drawn from the seed."""
+        images, served = self._served()
+        g = common.rng(self.seed, common.TAG_SAMPLE, 1)
+        return [(i, served[i][g.integers(len(served[i]))]) for i in images]
 
     def check(self) -> dict:
-        served = self._sample(self.t["check_images"])
-        return detection.check(self.spec, self.seed, self.device, self.pool, served)
+        return detection.check(self.spec, self.seed, self.device, self.pool,
+                               self._sample(self.t["check_images"]), self._every())
 
     def control(self) -> dict:
         g = common.rng(self.seed, common.TAG_SAMPLE)

@@ -10,7 +10,6 @@ import torch
 from gpubench import common
 from gpubench.drivers import program
 from gpubench.reference import detect
-from gpubench.reference.owlvit import OwlViT as Reference
 
 
 def server(spec: dict, seed: int, device, **kw):
@@ -28,41 +27,53 @@ def server(spec: dict, seed: int, device, **kw):
 
 def _reference_outputs(spec, seed, device, images: np.ndarray, precision="fp32"):
     """(boxes, sims) numpy of the reference over uint8 [N, S, S, 3] host images."""
-    W = common.make_weights(spec["config"], seed, device)
-    ref = Reference(W, spec["config"], precision)
+    c = spec["config"]
+    W = common.make_weights(c, seed, device)
+    ref = common.reference(c).Model(W, c, precision)
     boxes, sims = ref.detect(torch.from_numpy(images).to(device))
     return boxes.cpu().numpy(), sims.cpu().numpy()
 
 
-def _judge(spec, rows, boxes, sims, sims_bf16) -> dict:
-    t = spec["traffic"]
-    return detect.compare(rows, boxes, sims, sims_bf16, spec["config"]["image_size"],
-                          t["confidence"], t["iou"], t["top_k"])
+def _judge(spec, rows, boxes, sims, sims_bf16, at, every) -> dict:
+    """The comparison's numbers of rows (for the images of the reference's
+    outputs boxes, sims at positions `at`) and, over every served image
+    (`every`: (position, row)), nms_class_gap."""
+    t, side = spec["traffic"], spec["config"]["image_size"]
+    args = (side, t["confidence"], t["iou"], t["top_k"])
+    out = detect.compare(rows, boxes[at], sims[at], sims_bf16, *args)
+    pos = [k for k, _ in every]
+    out["nms_class_gap"] = detect.class_gap([r for _, r in every], boxes[pos], sims[pos], *args)
+    return out
 
 
-def check(spec: dict, seed: int, device, pool: np.ndarray, served: list) -> dict:
-    """served: [(index into pool, row)] -> the comparison's numbers, the
-    reference run once over each distinct image, in float32 and in bf16."""
-    idx = sorted({i for i, _ in served})
+def check(spec: dict, seed: int, device, pool: np.ndarray, served: list, every: list) -> dict:
+    """served: the sample [(index into pool, row)] the numbers read; every:
+    [(index into pool, row)] of each image the window served, which
+    nms_class_gap reads -> the comparison's numbers, the reference run once
+    over each image in float32, and over the sample's in bf16."""
+    idx = sorted({i for i, _ in served} | {i for i, _ in every})
     at = {i: k for k, i in enumerate(idx)}
     boxes, sims = _reference_outputs(spec, seed, device, pool[idx])
-    s16 = _reference_outputs(spec, seed, device, pool[idx], "bf16")[1]
-    sel = [at[i] for i, _ in served]
-    return _judge(spec, [r for _, r in served], boxes[sel], sims[sel], s16[sel])
+    few = sorted({i for i, _ in served})
+    s16 = _reference_outputs(spec, seed, device, pool[few], "bf16")[1]
+    s16 = s16[[few.index(i) for i, _ in served]]
+    return _judge(spec, [r for _, r in served], boxes, sims, s16, [at[i] for i, _ in served],
+                  [(at[i], r) for i, r in every])
 
 
 def control(spec: dict, seed: int, device, pool: np.ndarray, idx: list) -> dict:
-    """Readings against the reference over pool[idx] of: the control (the
-    reference in fp8 in the program's place), half of every batch of 8 left
-    out (no detections), an answer altered where it is produced (the best
-    detection of every image given the next class), NMS that suppresses
-    nothing and NMS that suppresses across classes, and the reference's own
-    NMS (reads 0)."""
+    """Readings against the reference of: the control (the reference in
+    fp8 in the program's place), half of every batch of 8 left out (no
+    detections), an answer altered where it is produced (the best detection
+    of every image given the next class), NMS that suppresses nothing and
+    NMS across classes, and the reference's own NMS (reads 0). Each is
+    served for the whole pool: the numbers read pool[idx], nms_class_gap
+    every image."""
     t = spec["traffic"]
     side = spec["config"]["image_size"]
-    boxes, sims = _reference_outputs(spec, seed, device, pool[idx])
+    boxes, sims = _reference_outputs(spec, seed, device, pool)
     s16 = _reference_outputs(spec, seed, device, pool[idx], "bf16")[1]
-    b8, s8 = _reference_outputs(spec, seed, device, pool[idx], "fp8")
+    b8, s8 = _reference_outputs(spec, seed, device, pool, "fp8")
 
     def nms(b, s, rule="class_aware"):
         return detect.nms_rows(b, s, side, t["confidence"], t["iou"], t["top_k"], rule)
@@ -80,7 +91,9 @@ def control(spec: dict, seed: int, device, pool: np.ndarray, idx: list) -> dict:
             "fault_altered_answer": altered, "fault_nms_none": nms(boxes, sims, "none"),
             "fault_nms_class_agnostic": nms(boxes, sims, "class_agnostic"),
             "reference_nms_itself": served}
-    out = {k: {"numbers": _judge(spec, r, boxes, sims, s16)} for k, r in rows.items()}
+    out = {k: {"numbers": _judge(spec, [r[i] for i in idx], boxes, sims, s16, idx,
+                                 list(enumerate(r)))}
+           for k, r in rows.items()}
     out["reference_nms_itself"]["suppressed_per_image"] = detect.suppressed(served, sims,
                                                                         t["confidence"], t["top_k"])
     return out

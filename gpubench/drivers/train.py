@@ -24,7 +24,6 @@ import torch
 from gpubench import common
 from gpubench.drivers import program
 from gpubench.reference import train as ref_train
-from gpubench.reference.owlvit import OwlViT as Reference
 from owlvit_tpu_torch.train.trainer import Trainer
 from owlvit_tpu_torch.utils.config import Config, DataConfig, ModelConfig, TrainingConfig
 
@@ -221,9 +220,10 @@ class Cell:
         similarities computed in bf16."""
         W0, w = self._weights()
         batches = self._reference_batches()
-        ref = ref_train.trajectory(W0, self.c, self.t, batches, w)
+        Model = common.reference(self.c).Model
+        ref = ref_train.trajectory(Model, W0, self.c, self.t, batches, w)
         with torch.no_grad():
-            sims_bf16 = Reference(W0, self.c, "bf16").detect(batches[0]["images"])[1].cpu()
+            sims_bf16 = Model(W0, self.c, "bf16").detect(batches[0]["images"])[1].cpu()
         return ref, sims_bf16
 
     def check(self) -> dict:
@@ -238,11 +238,12 @@ class Cell:
         precision)."""
         ref, sims_bf16 = self._reference()
         W0, w = self._weights()
-        out = {}
+        Model, out = common.reference(self.c).Model, {}
         for name, kw in (("control_fp8", {"precision": "fp8"}),
                          ("fault_half_batch", {"half_batch": True}),
                          ("look_reference_bf16", {"precision": "bf16"})):
-            other = ref_train.trajectory(W0, self.c, self.t, self._reference_batches(), w, **kw)
+            other = ref_train.trajectory(Model, W0, self.c, self.t, self._reference_batches(),
+                                         w, **kw)
             out[name] = {"numbers": ref_train.compare(other, ref, sims_bf16),
                          "detail": ref_train.detail(other, ref)}
         return out

@@ -3,9 +3,10 @@ the CLIP vision transformer, the merged features, the box head and the
 query-bank class head of Minderer et al. 2022 (arXiv:2205.06230; HF
 transformers modeling_owlvit.py), as the fine-tune recipe runs them.
 
-It reads the weights by the names of vision_leaves (gpubench/common.py):
-the patch embedding is [D, T*T*3] over (row, column, channel) of a patch,
-every linear weight is [out, in]. It imports nothing of the program.
+It reads the weights by the names of `leaves`, which the benchmark draws
+in their order (gpubench/common.make_weights): the patch embedding is
+[D, T*T*3] over (row, column, channel) of a patch, every linear weight is
+[out, in]. It imports nothing of the program.
 
 Departures from the published model, both of the recipe the program
 follows: the query bank's rows are normalised as q / |q| + 1e-6, and a
@@ -60,6 +61,46 @@ def box_bias(grid: int) -> torch.Tensor:
 def xyxy(cxcywh: torch.Tensor) -> torch.Tensor:
     cx, cy, w, h = cxcywh.unbind(-1)
     return torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1)
+
+
+def leaves(c: dict) -> list:
+    """(name, shape, init) of every parameter the detector's vision tower
+    and heads hold, in the names of the port's parameter tree. init: ("w",
+    std) normal, ("one", std) 1 + normal (LayerNorm scales)."""
+    D, M, T = c["hidden_size"], c["intermediate_size"], c["patch_size"]
+    P = (c["image_size"] // T) ** 2
+    proj, Q = c["projection_dim"], c["num_queries"]
+    small = ("w", 0.02)
+    out = [("vision.patch_embedding.weight", (D, T * T * 3), small),
+           ("vision.class_embedding", (D,), small),
+           ("vision.position_embedding", (P + 1, D), small)]
+
+    def ln(name):
+        out.extend([(f"{name}.weight", (D,), ("one", 0.02)), (f"{name}.bias", (D,), small)])
+
+    def lin(name, d_in, d_out):
+        out.extend([(f"{name}.weight", (d_out, d_in), ("w", d_in ** -0.5)),
+                    (f"{name}.bias", (d_out,), small)])
+
+    ln("vision.pre_ln")
+    for i in range(c["num_hidden_layers"]):
+        p = f"vision.layers.{i}"
+        ln(f"{p}.ln1")
+        for n in ("q", "k", "v", "out"):
+            lin(f"{p}.attn.{n}", D, D)
+        ln(f"{p}.ln2")
+        lin(f"{p}.mlp.fc1", D, M)
+        lin(f"{p}.mlp.fc2", M, D)
+    ln("vision.post_ln")
+    ln("merged_ln")
+    lin("box_head.dense0", D, D)
+    lin("box_head.dense1", D, D)
+    lin("box_head.dense2", D, 4)
+    lin("class_head.dense0", D, proj)
+    lin("class_head.logit_shift", D, 1)
+    lin("class_head.logit_scale", D, 1)
+    out.append(("queries", (Q, proj), small))
+    return out
 
 
 class OwlViT:
@@ -138,3 +179,7 @@ class OwlViT:
                                       self.c["num_hidden_layers"]))
                for i in range(0, images.shape[0], block)]
         return torch.cat([o[0] for o in out]), torch.cat([o[1] for o in out])
+
+
+# the model class a configuration that names this reference runs
+Model = OwlViT

@@ -25,8 +25,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .owlvit import OwlViT
-
 TERMS = ("loss_ce", "loss_bg", "loss_bbox", "loss_giou")
 LOG_CLAMP = -100.0
 PROPAGATION_IOU = 0.85
@@ -134,6 +132,15 @@ def targets(sims: torch.Tensor, boxes: torch.Tensor, gt: dict, n_classes: int):
     return matched, labels
 
 
+def clamped_log(x: torch.Tensor, log, pole: float) -> torch.Tensor:
+    """log(x) clamped below at LOG_CLAMP, as the recipe takes it, where
+    x == pole (log's value there -inf) reads the clamp with no gradient.
+    The plain log(x).clamp(min=LOG_CLAMP) has the same values, but its
+    gradient at the pole is 0 * inf, NaN, in autograd."""
+    away = x != pole
+    return torch.where(away, log(torch.where(away, x, 0.5)), LOG_CLAMP).clamp(min=LOG_CLAMP)
+
+
 def loss_sums(sims, boxes, gt, matched, labels, n_classes, weights):
     """The four terms' numerators over a block of images (torch, with
     gradient), given the block's matching and labels."""
@@ -144,8 +151,8 @@ def loss_sums(sims, boxes, gt, matched, labels, n_classes, weights):
                                          n_classes + 1)[..., :n_classes].float()
 
     def focal_bce(target):
-        bce = -(target * torch.log(x).clamp(min=LOG_CLAMP)
-                + (1 - target) * torch.log1p(-x).clamp(min=LOG_CLAMP)) * weights
+        bce = -(target * clamped_log(x, torch.log, 0.0)
+                + (1 - target) * clamped_log(x, lambda v: torch.log1p(-v), 1.0)) * weights
         return (torch.square(1 - torch.exp(-bce)) * bce).sum(-1)
 
     ce = focal_bce(onehot)[fg].sum()
@@ -159,12 +166,13 @@ def loss_sums(sims, boxes, gt, matched, labels, n_classes, weights):
     return torch.stack([ce, bg, l1, giou])
 
 
-def trajectory(W0: dict, c: dict, t: dict, batches: list, weights: torch.Tensor,
+def trajectory(Model, W0: dict, c: dict, t: dict, batches: list, weights: torch.Tensor,
                precision: str = "fp32", half_batch: bool = False, block: int = 4) -> dict:
-    """Follow len(batches) AdamW steps from the weights W0. batches[i]:
-    {"images": uint8 [B, S, S, 3] on the device, "labels", "boxes",
-    "gt_mask"} (numpy). half_batch: the fault that leaves the second half
-    of every batch out and takes the mean over the rest.
+    """Follow len(batches) AdamW steps of the configuration's reference
+    model class Model (common.reference(c).Model) from the weights W0.
+    batches[i]: {"images": uint8 [B, S, S, 3] on the device, "labels",
+    "boxes", "gt_mask"} (numpy). half_batch: the fault that leaves the
+    second half of every batch out and takes the mean over the rest.
     -> {"terms": [[4] per step], "grad": {leaf: |g| of step 1},
         "change": {leaf: |p - p0| after the last step},
         "sims": step 1's class similarities (CPU)}"""
@@ -174,7 +182,7 @@ def trajectory(W0: dict, c: dict, t: dict, batches: list, weights: torch.Tensor,
     W = dict(W0)
     for n in names:
         W[n] = W0[n].clone().requires_grad_(True)
-    model = OwlViT(W, c, precision)
+    model = Model(W, c, precision)
     m = {n: torch.zeros_like(W[n]) for n in names}
     v = {n: torch.zeros_like(W[n]) for n in names}
     b1, b2, eps = 0.9, 0.999, 1e-8

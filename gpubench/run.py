@@ -7,8 +7,9 @@ start) makes the weights and inputs from the seed, builds the program's
 trainer or server, runs the cell's checked work and warms up until the
 allocator's reserved bytes stop growing. The window then measures for
 --seconds. With --trace 1 the window also records the trainer's phase
-marks, and a traced span of the same work follows it (the profiler on),
-from which the per-layer metrics are read. Then the program is freed and
+marks and the program's spans (its `profiling.record()`), and a traced
+span of the same work follows it (the profiler on), from which the
+per-layer metrics are read. Then the program is freed and
 the plain reference judges what the window produced.
 
 Earlier lines of standard output are JSON records of the run; the last is
@@ -113,7 +114,11 @@ def run(args, spec: dict, device: str = "cuda") -> int:
     emit("setup", imports_s=t_cell - T_START, cell_s=t_warm - t_cell,
          warm_s=t_window - t_warm, **getattr(cell, "phases", {}))
     seg0 = segments()
-    win = cell.window(args.seconds, marks=bool(args.trace))
+    with spans_recorded(args.trace) as spans:
+        win = cell.window(args.seconds, marks=bool(args.trace))
+        torch.cuda.synchronize()
+    if args.trace:
+        win["spans"] = spans
     emit("window", workload=spec["name"], seed=args.seed, warm_units=units,
          cuda_malloc_in_window=segments() - seg0, wall_s=win["wall_s"],
          attempted=win["attempted"], failed=win["failed"], **win.get("info", {}))
@@ -165,6 +170,17 @@ def run(args, spec: dict, device: str = "cuda") -> int:
         return 4
     print(json.dumps(result), flush=True)
     return 0
+
+
+def spans_recorded(on: bool):
+    """The program's spans (owlvit_tpu_torch.utils.profiling.record()) of
+    the block where `on`, which the span metrics read from the window dict;
+    an empty list where not, at no cost to the program."""
+    if not on:
+        return contextlib.nullcontext([])
+    from owlvit_tpu_torch.utils import profiling
+
+    return profiling.record()
 
 
 @contextlib.contextmanager

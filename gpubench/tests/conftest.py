@@ -2,47 +2,70 @@
 minutes). Tests marked `chip` need an NVIDIA card and skip without one; on
 the card: python3 -m pytest gpubench/tests -m chip.
 
-Runs on the CPU use the `tiny` configuration with the cells' traffic cut to
-a few images, through the program's plain paths."""
+Runs on the CPU use each cell's CPU-size counterparts, files found by name
+under gpubench/tests/tiny/:
+  configs/<configuration>.json  the configuration file whole, at a size
+                                the CPU runs in seconds through the
+                                program's plain paths (float32);
+  traffic/<mix>.json            the keys of the mix that the tiny size
+                                cuts; its other keys stay as the mix's
+                                own file has them (bulk_jobs' IoU is
+                                lowered so that NMS suppresses at 9
+                                patches).
+A configuration or a mix that enters BENCHMARK.json brings its
+counterparts (test_gpubench_manifest.py fails without them); a driver
+other than bulk and train brings its own tests,
+gpubench/tests/test_driver_<driver>.py."""
 
 import argparse
 import json
 import time
+from pathlib import Path
 
 import pytest
 import torch
 
 from gpubench import common
 
-TINY = {"program_config": "tiny", "image_size": 96, "patch_size": 32, "hidden_size": 64,
-        "num_hidden_layers": 2, "num_attention_heads": 4, "intermediate_size": 128,
-        "layer_norm_eps": 1e-05, "projection_dim": 32, "num_queries": 12,
-        "prompts_per_class": 3, "dtype": "float32"}
-# each mix cut to a few images of the tiny model (9 patches, 4 classes);
-# the bulk mix's IoU threshold lowered so that NMS suppresses at this size
-TINY_TRAFFIC = {
-    "train_uncached": dict(host_images=32, batch=8, n_classes=4, max_gt=8, boxes_min=2,
-                           boxes_max=4),
-    "bulk_jobs": dict(buckets=[1, 8], job_images=16, pool_images=16, check_images=8,
-                      iou=0.1),
-}
-# the training driver's activation pool, which no cell of the manifest runs
-# yet: the cached fine-tune is a mix of its own once its cell holds
-CACHED = dict(cached=True, pool_rows=40)
+TINY = Path(__file__).resolve().parent / "tiny"
 SEED = 2 ** 31 + 12345  # more than 32 signed bits hold, as the driver's seeds
+# the drivers the shared tests know; another brings test_driver_<driver>.py
+SHARED_DRIVERS = ("bulk", "train")
 
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "chip: needs an NVIDIA card (skips without one)")
 
 
-def tiny_spec(workload: str, dtype: str = "float32", **traffic) -> dict:
-    """The cell `workload`, its limits included, at the tiny size on the
-    CPU; traffic overrides the mix's parameters."""
-    spec = common.cell(workload)
-    spec["config"] = {**TINY, "dtype": dtype}
-    spec["traffic"].update(TINY_TRAFFIC[spec["traffic_name"]], **traffic)
+def tiny_file(kind: str, name: str, tiny: Path = TINY) -> Path:
+    """The CPU-size counterpart `tiny/<kind>/<name>.json`; a missing one
+    fails with the file to add."""
+    path = tiny / kind / f"{name}.json"
+    if not path.is_file():
+        pytest.fail(f"no CPU-size counterpart of {name!r}: add {path}", pytrace=False)
+    return path
+
+
+def tiny_spec(workload: str, dtype: str = "float32", root: Path = common.ROOT,
+              tiny: Path = TINY, **traffic) -> dict:
+    """The cell `workload` of the checkout at `root`, its limits included,
+    at its tiny size (the counterparts under `tiny`) on the CPU; traffic
+    overrides the mix's parameters."""
+    spec = common.cell(workload, root)
+    spec["config"] = {**common.load_json(tiny_file("configs", spec["config_name"], tiny)),
+                      "dtype": dtype}
+    spec["traffic"].update(common.load_json(tiny_file("traffic", spec["traffic_name"], tiny)),
+                           **traffic)
     return spec
+
+
+def shared_driver(workload: str) -> str:
+    """The cell's driver where the shared tests know it; else the test
+    skips, naming the file the driver brings its tests in."""
+    d = common.cell(workload)["traffic"]["driver"]
+    if d not in SHARED_DRIVERS:
+        pytest.skip(f"driver {d!r}: its tests are in gpubench/tests/test_driver_{d}.py")
+    return d
 
 
 class _Event:

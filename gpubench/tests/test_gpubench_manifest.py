@@ -6,6 +6,7 @@ import re
 import pytest
 
 from gpubench import common
+from gpubench.tests.conftest import SHARED_DRIVERS, TINY, tiny_file
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -91,3 +92,34 @@ def test_config_files_match_the_program():
 
     for c in M["configs"]:
         program.config(common.load_json(common.ROOT / c["file"]))
+
+
+@pytest.mark.parametrize("kind,name", [("configs", c["name"]) for c in M["configs"]] +
+                         [("traffic", t) for t in sorted({w["traffic"] for w in M["workloads"]})])
+def test_every_configuration_and_mix_has_its_tiny_counterpart(kind, name):
+    assert (TINY / kind / f"{name}.json").is_file(), \
+        f"add gpubench/tests/tiny/{kind}/{name}.json, the CPU-size counterpart of {name!r}"
+
+
+def test_a_missing_counterpart_names_the_file():
+    with pytest.raises(pytest.fail.Exception, match="tiny/traffic/no_such_mix.json"):
+        tiny_file("traffic", "no_such_mix")
+
+
+@pytest.mark.parametrize("mix", sorted({w["traffic"] for w in M["workloads"]}))
+def test_every_driver_has_its_tests(mix):
+    """A mix's driver is a module of gpubench/drivers; one that the shared
+    tests do not know brings gpubench/tests/test_driver_<driver>.py."""
+    d = common.load_json(common.HERE / "traffic" / f"{mix}.json")["driver"]
+    assert (common.HERE / "drivers" / f"{d}.py").is_file()
+    if d not in SHARED_DRIVERS:
+        assert (common.HERE / "tests" / f"test_driver_{d}.py").is_file(), \
+            f"driver {d!r} of mix {mix!r}: add gpubench/tests/test_driver_{d}.py"
+
+
+@pytest.mark.parametrize("c", M["configs"], ids=lambda c: c["name"])
+def test_each_configuration_names_a_reference(c):
+    for f in (common.load_json(common.ROOT / c["file"]),
+              common.load_json(TINY / "configs" / f"{c['name']}.json")):
+        ref = common.reference(f)
+        assert callable(ref.Model) and ref.leaves(f)

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from gpubench import common, spans as span_reads
-from gpubench.tests.conftest import SEED, _Event, tiny_spec
+from gpubench.tests.conftest import SEED, _Event, shared_driver, tiny_spec
 from owlvit_tpu_torch.utils import profiling
 
 CELLS = [w["name"] for w in common.manifest()["workloads"]]
@@ -93,6 +93,7 @@ def _cell(workload: str):
 
 @pytest.mark.parametrize("workload", CELLS)
 def test_window_work_holds_the_programs_spans(monkeypatch, workload):
+    driver = shared_driver(workload)
     monkeypatch.setattr(torch.cuda, "Event", _Event)
     spec, cell = _cell(workload)
     with profiling.record() as spans:
@@ -103,7 +104,7 @@ def test_window_work_holds_the_programs_spans(monkeypatch, workload):
     kids: dict = {}
     for s in spans:
         kids.setdefault(s["parent"], []).append(s["name"])
-    if spec["traffic"]["driver"] == "bulk":
+    if driver == "bulk":
         t = spec["traffic"]
         batches = -(-t["job_images"] // t["buckets"][-1])
         jobs = [s for s in spans if s["name"] == "serve.bulk"]
@@ -117,7 +118,7 @@ def test_window_work_holds_the_programs_spans(monkeypatch, workload):
         # no device events off the card: the forward and NMS read there
         assert set(got) == {"job_edge_ms.bulk"} and got["job_edge_ms.bulk"] > 0
         assert set(span_reads.job_edges(spans)) == {j["job"] for j in jobs}
-    else:
+    if driver == "train":
         steps = [s for s in spans if s["name"] == "train.step"]
         assert len(steps) == win["attempted"] == len(win["phase_ms"]["forward"])
         assert [s["job"] for s in steps] == sorted(s["job"] for s in steps)
@@ -129,13 +130,14 @@ def test_window_work_holds_the_programs_spans(monkeypatch, workload):
 
 @pytest.mark.parametrize("workload", CELLS)
 def test_turns_with_the_recorder_off_and_on(workload):
+    driver = shared_driver(workload)
     spec, cell = _cell(workload)
     off = span_reads.turn(cell, 0.2, recorder=False)
     on = span_reads.turn(cell, 0.2, recorder=True)
     cell.free()
     assert set(off) == {"recorder", "e2e", "attempted"} and off["recorder"] == "off"
     assert on["e2e"].keys() == off["e2e"].keys() and on["attempted"] > 0
-    key = "job_edge_ms.bulk" if spec["traffic"]["driver"] == "bulk" else "input_ms.train"
+    key = {"bulk": "job_edge_ms.bulk", "train": "input_ms.train"}[driver]
     assert list(on["readings"]) == [key] and on["readings"][key] > 0
     top = "serve.bulk" if key == "job_edge_ms.bulk" else "train.step"
     assert on["spans"][top]["n"] == len(next(iter(on["per_job"].values())))
@@ -157,3 +159,39 @@ def test_device_span_reads_the_cards_time():
     # the host returns before the card is done
     assert s["device_ms"] > 0.1 and s["device_ms"] == s["device_ms"]
     assert span_reads.device_median(spans, "t.matmul") == s["device_ms"]
+
+
+# the span readings the CPU has: host clocks (the device ones need CUDA events)
+HOST_READINGS = {"job_edge_ms.bulk", "input_ms.train"}
+
+
+class _NoProfiler:
+    """The traced span without torch.profiler (which traces a card): no
+    device events, half of a 1 s window busy."""
+
+    def __init__(self, cpu: bool = False):
+        self.device, self.host, self.window_s, self.busy_s = [], [], 1.0, 0.5
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+@pytest.mark.parametrize("workload", CELLS)
+def test_traced_run_reports_the_span_metrics(cpu_run, monkeypatch, workload):
+    """A --trace 1 run records the program's spans over its window, and the
+    span metrics of the cell's per_layer read them into its result line."""
+    from gpubench import run as run_mod
+
+    shared_driver(workload)
+    monkeypatch.setattr(run_mod, "Trace", _NoProfiler)
+    spec = tiny_spec(workload)
+    res = cpu_run(spec, trace=1)
+    assert res["correct"]
+    listed = {m["name"] for m in spec["per_layer"]}
+    for name in listed & HOST_READINGS:
+        assert res["metrics"][name]["value"] > 0 and res["metrics"][name]["unit"] == "ms"
+    assert not set(res["metrics"]) & (set(span_reads.READINGS) - HOST_READINGS)
+    assert set(res["metrics"]) <= listed

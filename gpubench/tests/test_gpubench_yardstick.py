@@ -1,11 +1,14 @@
 """The frozen arithmetic: FLOP counts, attention work, the trace's
 reductions, the metric readers on hand-built events."""
 
+import hashlib
 import importlib.util
 
 import pytest
+import torch
 
 from gpubench import common, yardstick
+from gpubench.tests.conftest import SEED, TINY
 from owlvit_tpu_torch.models import get_config
 from owlvit_tpu_torch.utils import flops as program_flops
 
@@ -79,3 +82,42 @@ def test_readers_on_hand_built_events():
     assert _reader("forward_ms.train")(ctx) == 2.0
     f = yardstick.train_flops_per_image(CONFIGS["owlvit-l14"], 1, True)
     assert _reader("mfu.train")(ctx) == pytest.approx(100 * f * 1000 / 989e12)
+
+
+# SHA-256 of owlvit-l14's weights at the tiny size and SEED, each leaf's
+# name then its float32 bytes in the draw's order, as the benchmark first
+# drew them (common.vision_leaves, before a configuration chose its
+# reference)
+FIRST_DRAW_SHA256 = "c6adf962256f1daa29c8ed96e9078823e13860fc32a8d1f1bb5011441b01db43"
+
+
+def test_owlvit_l14_weights_are_drawn_as_before():
+    """owlvit-l14 names no reference (owlvit): its weights, at the tiny size
+    and a fixed seed, are bit-equal to the first draw's."""
+    c = common.load_json(TINY / "configs" / "owlvit-l14.json")
+    h = hashlib.sha256()
+    for name, w in common.make_weights(c, SEED, "cpu").items():
+        h.update(name.encode())
+        h.update(w.contiguous().numpy().tobytes())
+    assert h.hexdigest() == FIRST_DRAW_SHA256
+
+
+@pytest.mark.parametrize("log,pole", [(torch.log, 0.0), (lambda v: torch.log1p(-v), 1.0)],
+                         ids=["log", "log1p"])
+def test_reference_logs_have_no_nan_gradient_at_their_poles(log, pole):
+    """The reference loss's clamped logs take the values of the plain
+    log(x).clamp(min=-100) everywhere and its gradient off the pole; at the
+    pole (a similarity of exactly 0, or 1) the plain form's gradient is NaN
+    (0 * inf) and theirs 0."""
+    from gpubench.reference import train as ref_train
+
+    x = torch.tensor([0.0, 1e-30, 0.3, 1 - 2 ** -24, 1.0], requires_grad=True)
+    y = x.detach().clone().requires_grad_(True)
+    got = ref_train.clamped_log(x, log, pole)
+    plain = log(y).clamp(min=ref_train.LOG_CLAMP)
+    assert torch.equal(got, plain)
+    got.sum().backward()
+    plain.sum().backward()
+    at = x.detach() == pole
+    assert torch.isnan(y.grad[at]).all() and (x.grad[at] == 0).all()
+    assert torch.equal(x.grad[~at], y.grad[~at])
